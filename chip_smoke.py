@@ -5,11 +5,16 @@
 
 builds the CUDA kernels from ``zerog_tpu_torch/csrc``, holds each kernel
 against its plain PyTorch version at the shapes a k = 14 proof gives it
-(tolerance zero: exact integer arithmetic), then drives the port's main path
-— ``Srs.setup -> keygen -> create_proof -> verify_proof`` at k = 14 — with
-every commitment going through the kernels, and checks the results by the
-repo's own means (commitments against the tau ground truth, proof verifies,
-tampered proof and wrong instance rejected, equal seeds give equal bytes).
+(tolerance zero: exact integer arithmetic), holds the int8-DFT NTT engine
+against the butterflies at k = 14 and 17, then drives the port's paths —
+``Srs.setup -> keygen -> create_proof -> verify_proof`` at k = 14 on a
+filler circuit, and the WNN proof of inference on a seeded model of the
+MNIST-Tiny shape (``Wnn.generate_proving_key -> Wnn.proof ->
+Wnn.verify_proof``) — with every commitment and every large NTT going
+through the kernels, and checks the results by the repo's own means
+(commitments against the tau ground truth, the device prediction against the
+exact one, proofs verify, tampered proofs and wrong instances rejected, equal
+seeds give equal bytes, engine and butterflies give equal bytes).
 
 It prints one JSON object a line; any phase that fails raises and the run
 exits non-zero. Without a CUDA device it exits non-zero at once. The last
@@ -37,6 +42,10 @@ from zerog_tpu_torch.field import pfield
 from zerog_tpu_torch.curve import Srs, pscan, pfold, pippenger
 from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from zerog_tpu_torch.curve.jpoints import points_from_device, points_to_device
+from zerog_tpu_torch.plonk import ConstraintSystem
+from zerog_tpu_torch.poly import pntt
+from zerog_tpu_torch.poly.domain import get_domain
+from zerog_tpu_torch.poly.ntt import NttPlan
 
 DEV = torch.device("cuda", 0)
 K = 14
@@ -66,7 +75,19 @@ KERNEL_META = {
                  "zerog_tpu/curve/pfold.py:83"),
     "weighted_fold": ("zerog_tpu_torch/csrc/fold.cu",
                       "zerog_tpu/curve/pfold.py:151"),
+    "ntt_epilogue": ("zerog_tpu_torch/csrc/ntt.cu",
+                     "zerog_tpu/poly/pntt.py:419"),
+    "ntt_twiddle": ("zerog_tpu_torch/csrc/ntt.cu",
+                    "zerog_tpu/poly/pntt.py:562"),
 }
+MSM_KERNELS = ("flush_scan_affine", "flush_scan_jac", "sum_rows",
+               "weighted_fold")
+NTT_KERNELS = ("ntt_epilogue", "ntt_twiddle")
+# multiply-adds of one REDC of a 9-word value (8 words x 8 steps)
+MADS_PER_REDC = 64
+# the WNN model of the smoke run: MNIST-Tiny's shape, registered at k = 14
+# (28-bit filter inputs, 256-entry bloom arrays, 1 hash, 1 bit per input)
+TINY_SHAPE = (28, 256, 1, 1)
 
 
 def emit(obj):
@@ -331,7 +352,209 @@ def phase_kernels():
     return res
 
 
-# ---- phase 4: commit -------------------------------------------------------------
+# ---- phase 4: the int8-DFT NTT engine ---------------------------------------------
+
+def _rand_mont(rng, shape):
+    """Canonical field elements (< 2^253 < p) as int64 limbs on the card."""
+    a = rng.integers(0, 1 << 16, size=tuple(shape) + (16,), dtype=np.int64)
+    a[..., 15] &= 0x1FFF
+    return torch.from_numpy(a).to(DEV)
+
+
+def _rand_word_planes(rng, t, lanes):
+    """Canonical field elements as int32 word planes [8, t, lanes]."""
+    w = pntt._limbs_to_words(_rand_mont(rng, (t, lanes)))
+    return torch.movedim(w, -1, 0).contiguous()
+
+
+class _LevelRecorder:
+    """Records every DFT level (its int8 input) and every kernel call of the
+    engine while it is active, with the kernels' outputs."""
+
+    def __enter__(self):
+        self.levels, self.epilogues, self.twiddles = [], [], []
+        self._saved = (pntt._matmul_level, pntt.epilogue, pntt.twiddle)
+        matmul_level, epilogue, twiddle = self._saved
+
+        def rec_level(dp, key, xb, twiddle=None, out_bytes=True):
+            self.levels.append((dp, key, xb))
+            return matmul_level(dp, key, xb, twiddle, out_bytes)
+
+        def rec_epilogue(acc, colsum, rowc, tw=None, out_bytes=True):
+            out = epilogue(acc, colsum, rowc, tw, out_bytes)
+            self.epilogues.append(((acc, colsum, rowc, tw, out_bytes), out))
+            return out
+
+        def rec_twiddle(xb, twc):
+            out = twiddle(xb, twc)
+            self.twiddles.append(((xb, twc), out))
+            return out
+
+        pntt._matmul_level, pntt.epilogue, pntt.twiddle = (
+            rec_level, rec_epilogue, rec_twiddle)
+        return self
+
+    def __exit__(self, *exc):
+        pntt._matmul_level, pntt.epilogue, pntt.twiddle = self._saved
+
+
+def _epilogue_bound(t, lanes, with_twiddle):
+    elems = t * lanes
+    nbytes = elems * (128 + 32) + 4 * lanes + 4 * 32 * t
+    mads = elems * MADS_PER_REDC
+    if with_twiddle:
+        nbytes += elems * 32
+        mads += elems * MADS_PER_MUL
+    return bound(nbytes, mads)
+
+
+def _timed_plain(fn):
+    sync()
+    t0 = time.time()
+    out = fn()
+    sync()
+    return out, (time.time() - t0) * 1e3
+
+
+def _check_engine_kernels(rec, rng, n, res, levels_out):
+    """Holds every kernel call of one recorded transform against its plain
+    version (and the with-twiddle epilogue variants on the same
+    accumulators), times each, and adds them up in `res`."""
+    for (dp, key, xb), ((acc, colsum, rowc, tw, out_bytes), out) in zip(
+            rec.levels, rec.epilogues):
+        t, lanes = acc.shape[1], acc.shape[2]
+        ref, plain = _timed_plain(
+            lambda: pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes))
+        if not _eq(out, ref):
+            raise AssertionError(f"ntt_epilogue t={t} lanes={lanes} != plain")
+        ms = time_ms(lambda: pntt.epilogue_words(acc, colsum, rowc, tw,
+                                                 out_bytes), reps=5)
+        a = xb.reshape(32 * t, lanes)
+        mm = time_ms(lambda: torch._int_mm(dp.mats[key], a), reps=5)
+        b_ms, b_by = _epilogue_bound(t, lanes, False)
+        e = res["ntt_epilogue"]
+        e["ms"] += ms
+        e["plain_ms"] += plain
+        e["bound_ms"] += b_ms
+        e["int_mm_ms"] += mm
+        e["bound_by"].add(b_by)
+        e["shapes"].append(f"n=2^{n.bit_length() - 1}: t={t} x {lanes} lanes "
+                           f"({'bytes' if out_bytes else 'words'} out)")
+        levels_out.append(dict(
+            n=n, t=t, lanes=lanes, out="bytes" if out_bytes else "words",
+            epilogue_ms=ms, bound_ms=b_ms, bound_by=b_by, int_mm_ms=mm,
+            int_mm_shape=f"[{32 * t}, {32 * t}] x [{32 * t}, {lanes}]",
+            plain_ms=plain))
+        # the with-twiddle variants (not launched by the engine) on the same
+        # accumulators, with a random twiddle
+        twr = _rand_word_planes(rng, t, lanes)
+        for ob in (True, False):
+            got = pntt.epilogue_words(acc, colsum, rowc, twr, ob)
+            ref, plain_tw = _timed_plain(
+                lambda: pntt.epilogue_plain(acc, colsum, rowc, twr, ob))
+            if not _eq(got, ref):
+                raise AssertionError(f"ntt_epilogue with twiddle t={t} "
+                                     f"lanes={lanes} out_bytes={ob} != plain")
+            e["variants_checked"] += 1
+        tw_ms = time_ms(lambda: pntt.epilogue_words(acc, colsum, rowc, twr,
+                                                    out_bytes), reps=3)
+        e["with_twiddle_ms"] += tw_ms
+        e["with_twiddle_bound_ms"] += _epilogue_bound(t, lanes, True)[0]
+        del twr, got, ref
+    for (xb, twc), out in rec.twiddles:
+        s, lanes, r = xb.shape[1], xb.shape[2], twc.shape[2]
+        ref, plain = _timed_plain(lambda: pntt.twiddle_plain(xb, twc))
+        if not _eq(out, ref):
+            raise AssertionError(f"ntt_twiddle s={s} lanes={lanes} != plain")
+        ms = time_ms(lambda: pntt.twiddle_words(xb, twc), reps=5)
+        elems = s * lanes
+        b_ms, b_by = bound(elems * 64 + 32 * s * r, elems * MADS_PER_MUL)
+        w = res["ntt_twiddle"]
+        w["ms"] += ms
+        w["plain_ms"] += plain
+        w["bound_ms"] += b_ms
+        w["bound_by"].add(b_by)
+        w["shapes"].append(f"n=2^{n.bit_length() - 1}: s={s} x {lanes} lanes "
+                           f"(table [{s}, {r}])")
+        levels_out.append(dict(n=n, twiddle_s=s, lanes=lanes, table_r=r,
+                               twiddle_ms=ms, bound_ms=b_ms, bound_by=b_by,
+                               plain_ms=plain))
+
+
+def phase_ntt(batch):
+    """Kernels 6 and 7 at the shapes a k = 14 WNN proof gives them (forward
+    transforms of `batch` columns at n = 2^14 and 2^17), all four epilogue
+    variants; whole transforms of the engine against the butterflies
+    (forward, inverse, coset-extended); times by CUDA events."""
+    rng = np.random.default_rng(SEED + 3)
+    res = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=set(),
+                      shapes=[]) for name in NTT_KERNELS}
+    res["ntt_epilogue"].update(int_mm_ms=0.0, variants_checked=0,
+                               with_twiddle_ms=0.0, with_twiddle_bound_ms=0.0)
+    levels, transforms = [], []
+    t0 = time.time()
+    for log_n in (K, K + 3):
+        plan = NttPlan(log_n, device=DEV)
+        fwd, inv = plan._mxu(False), plan._mxu(True)
+        pntt._device_plan(fwd, DEV)
+        pntt._device_plan(inv, DEV)
+    sync()
+    plans_s = time.time() - t0
+
+    for log_n in (K, K + 3):
+        n = 1 << log_n
+        plan = NttPlan(log_n, device=DEV)
+        x = _rand_mont(rng, (batch, n))
+        with _LevelRecorder() as rec:
+            ev = plan.ntt(x)
+            sync()
+        ev_b = plan._transform(x, plan._fwd_tw)
+        if not _eq(ev, ev_b):
+            raise AssertionError(f"engine forward n=2^{log_n} != butterflies")
+        co = plan.intt(ev)
+        if not (_eq(co, plan._intt_impl(ev)) and _eq(co, x)):
+            raise AssertionError(f"engine inverse n=2^{log_n} != butterflies")
+        _check_engine_kernels(rec, rng, n, res, levels)
+        del rec
+        transforms.append(dict(
+            n=n, batch=batch,
+            engine_fwd_ms=time_ms(lambda: plan.ntt(x), reps=5),
+            butterfly_fwd_ms=time_ms(lambda: plan._transform(x, plan._fwd_tw),
+                                     reps=3),
+            engine_inv_ms=time_ms(lambda: plan.intt(ev), reps=5),
+            butterfly_inv_ms=time_ms(lambda: plan._intt_impl(ev), reps=3)))
+        del x, ev, ev_b, co
+
+    # coset-extended: the prover's k = 14, degree-6 domain (extended 2^17)
+    dom = get_domain(K, 6, DEV)
+    c = _rand_mont(rng, (batch, 1 << K))
+    ext = dom.coeff_to_extended(c)
+    back = dom.extended_to_coeff(ext)
+    ext_ms = time_ms(lambda: dom.coeff_to_extended(c), reps=5)
+    saved = NttPlan.MXU_MIN_LOG_N
+    NttPlan.MXU_MIN_LOG_N = 64
+    try:
+        ext_b = dom.coeff_to_extended(c)
+        back_b = dom.extended_to_coeff(ext_b)
+        ext_b_ms = time_ms(lambda: dom.coeff_to_extended(c), reps=3)
+    finally:
+        NttPlan.MXU_MIN_LOG_N = saved
+    if not (_eq(ext, ext_b) and _eq(back, back_b)
+            and _eq(back[:, : 1 << K], c)):
+        raise AssertionError("coset-extended transforms: engine != butterflies")
+    transforms.append(dict(n=dom.extended_n, batch=batch, coset_extended=True,
+                           engine_ms=ext_ms, butterfly_ms=ext_b_ms))
+    for name, r in res.items():
+        r["max_abs_err"] = 0
+        r["bound_by"] = "+".join(sorted(r["bound_by"]))
+        r["shape"] = "; ".join(r.pop("shapes")) + f" (B = {batch})"
+    emit(dict(phase="ntt", equal_to_plain=True, tolerance=0, batch=batch,
+              plans_s=round(plans_s, 3), levels=levels, transforms=transforms,
+              engine_equals_butterflies=True, kernels=res))
+    return res
+
+
+# ---- phase 5: commit -------------------------------------------------------------
 
 def phase_commit():
     t0 = time.time()
@@ -403,7 +626,7 @@ def phase_commit():
     return srs
 
 
-# ---- phase 5: prove ---------------------------------------------------------------
+# ---- phase 6: prove ---------------------------------------------------------------
 
 class NibbleMulFill:
     """The nibble-multiplication circuit (one mul gate, one 16-entry lookup,
@@ -501,11 +724,10 @@ def phase_prove(srs):
         raise AssertionError("tampered proof accepted")
     if not _rejected(verify_proof, pk.vk, srs, [[16]], proof2):
         raise AssertionError("wrong instance accepted")
-    for name in ("flush_scan_affine", "flush_scan_jac", "sum_rows",
-                 "weighted_fold"):
+    for name in MSM_KERNELS + NTT_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched by the "
-                                 "main path")
+                                 "prove path")
     emit(dict(phase="prove", k=K, rows_filled=2 * reps, usable_rows=usable,
               keygen_s=round(t_keygen, 3), prove_first_s=round(t_prove1, 3),
               prove_second_s=round(t_prove2, 3), verify_s=round(t_verify, 3),
@@ -516,11 +738,109 @@ def phase_prove(srs):
     return launches
 
 
+# ---- phase 7: WNN proof of inference -------------------------------------------------
+
+def tiny_model():
+    from zerog_tpu_torch.models import make_synthetic_wnn
+
+    return make_synthetic_wnn(*TINY_SHAPE, seed=0)
+
+
+def phase_wnn(srs):
+    """The system's own path on a seeded model of MNIST-Tiny's shape at
+    k = 14: device prediction, keygen, two proofs under one seed, verify,
+    rejections, and a third proof on the butterflies alone."""
+    wnn = tiny_model()
+    image = np.random.default_rng(SEED).integers(0, 256, (28, 28)).astype(np.uint8)
+    scores = [int(v) for v in wnn.predict(image)]
+    t0 = time.time()
+    fwd = wnn.predict_fn()
+    dev_scores = fwd(image)
+    sync()
+    t_predict = time.time() - t0
+    if dev_scores.device != DEV or dev_scores.tolist() != scores:
+        raise AssertionError(f"predict_fn on the card {dev_scores.tolist()} "
+                             f"!= predict {scores}")
+
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    pk = wnn.generate_proving_key(srs)
+    sync()
+    t_keygen = time.time() - t0
+    t0 = time.time()
+    proof1, out1 = wnn.proof(pk, srs, image, rng_seed=b"chip-smoke-wnn")
+    sync()
+    t_prove1 = time.time() - t0
+    timings = {}
+    t0 = time.time()
+    proof2, out2 = wnn.proof(pk, srs, image, rng_seed=b"chip-smoke-wnn",
+                             timings=timings)
+    sync()
+    t_prove2 = time.time() - t0
+    t0 = time.time()
+    ok = wnn.verify_proof(proof2, srs, pk.vk, out2)
+    t_verify = time.time() - t0
+    launches = kernels.launch_counts()
+
+    if out1 != scores or out2 != scores:
+        raise AssertionError("the proof's public scores != predict")
+    if proof1 != proof2:
+        raise AssertionError("equal seeds gave different WNN proof bytes")
+    if not ok:
+        raise AssertionError("WNN proof did not verify")
+    bad = bytearray(proof2)
+    bad[len(bad) // 2] ^= 1
+    if not _rejected(wnn.verify_proof, bytes(bad), srs, pk.vk, out2):
+        raise AssertionError("tampered WNN proof accepted")
+    wrong = list(scores)
+    wrong[0] += 1
+    if not _rejected(wnn.verify_proof, proof2, srs, pk.vk, wrong):
+        raise AssertionError("wrong scores accepted")
+    for name in MSM_KERNELS + NTT_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 "WNN path")
+
+    # the whole path on the butterflies alone (a fresh key, so that no
+    # cached extended form of the engine is reused): the same bytes; the
+    # second, warm proof is timed beside the engine's
+    saved = NttPlan.MXU_MIN_LOG_N
+    NttPlan.MXU_MIN_LOG_N = 64
+    try:
+        kernels.reset_launch_counts()
+        pk_b = wnn.generate_proving_key(srs)
+        proof3, _ = wnn.proof(pk_b, srs, image, rng_seed=b"chip-smoke-wnn")
+        timings_b = {}
+        t0 = time.time()
+        proof4, _ = wnn.proof(pk_b, srs, image, rng_seed=b"chip-smoke-wnn",
+                              timings=timings_b)
+        sync()
+        t_prove_b = time.time() - t0
+        butterfly_launches = {k: kernels.launch_counts()[k] for k in NTT_KERNELS}
+    finally:
+        NttPlan.MXU_MIN_LOG_N = saved
+    if any(butterfly_launches.values()):
+        raise AssertionError("the butterfly-only proof launched NTT kernels")
+    if proof3 != proof2 or proof4 != proof2:
+        raise AssertionError("engine and butterflies gave different proof bytes")
+    emit(dict(phase="wnn", k=K, model="make_synthetic_wnn(28, 256, 1, 1, seed=0)",
+              l=wnn.l, p=wnn.p, scores=scores, predict_fn_s=round(t_predict, 3),
+              keygen_s=round(t_keygen, 3), prove_first_s=round(t_prove1, 3),
+              prove_second_s=round(t_prove2, 3), verify_s=round(t_verify, 3),
+              timings={k: round(v, 4) for k, v in timings.items()},
+              butterflies_prove_second_s=round(t_prove_b, 3),
+              butterflies_timings={k: round(v, 4) for k, v in timings_b.items()},
+              proof_bytes=len(proof2), launches=launches, verified=True,
+              tamper_rejected=True, wrong_scores_rejected=True,
+              deterministic=True, engine_equals_butterflies_bytes=True))
+    return launches
+
+
 # ---- main --------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="env,build,kernels,commit,prove")
+    ap.add_argument("--phases", default="env,build,kernels,ntt,commit,prove,wnn")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -533,22 +853,37 @@ def main():
     if "build" in phases:
         phase_build()
     kres = phase_kernels() if "kernels" in phases else {}
-    launches = {}
-    if "commit" in phases or "prove" in phases:
+    if "ntt" in phases:
+        cs = ConstraintSystem()
+        tiny_model().get_circuit(np.zeros((28, 28), np.uint8)).configure(cs)
+        kres.update(phase_ntt(cs.num_advice))
+    by_path = {}
+    if {"commit", "prove", "wnn"} & set(phases):
         srs = phase_commit()
         if "prove" in phases:
-            launches = phase_prove(srs)
+            by_path["prove"] = phase_prove(srs)
+        if "wnn" in phases:
+            by_path["wnn"] = phase_wnn(srs)
+    main_path = by_path.get("wnn", by_path.get("prove", {}))
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         r = kres.get(name, {})
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches.get(name, 0),
+            launches=main_path.get(name, 0),
+            launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
             max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
             plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
             bound_by=r.get("bound_by"), library_ms=None,
-            shape=r.get("shape"), on_main_path=name != "field_binop"))
+            shape=r.get("shape"), on_main_path=name != "field_binop")
+        if name == "ntt_epilogue" and r:
+            row.update(int_mm_ms=r["int_mm_ms"],
+                       with_twiddle="not on the path; checked on the path's "
+                                    "accumulators",
+                       with_twiddle_ms=r["with_twiddle_ms"],
+                       with_twiddle_bound_ms=r["with_twiddle_bound_ms"])
+        rows.append(row)
     emit(dict(kernels=rows))
     emit(dict(phase="total", seconds=round(time.time() - t_start, 1)))
     print(nvidia_smi_line(), flush=True)

@@ -56,8 +56,8 @@ def lanes():
 def test_from_affine_and_infinity(lanes):
     _, _, pj, pt, _, _ = lanes
     _same(pj, pt)
-    _same(J.jac_infinity((2, 3)), T.jac_infinity((2, 3)))
-    inf = T.jac_infinity((1,))
+    _same(J.jac_infinity((2, 3)), T.jac_infinity((2, 3), device="cpu"))
+    inf = T.jac_infinity((1,), device="cpu")
     assert T.points_from_device(inf) == [None]
 
 

@@ -22,7 +22,12 @@ PORT_MODULES = [
     "zerog_tpu_torch.curve", "zerog_tpu_torch.curve.pscan",
     "zerog_tpu_torch.curve.pfold", "zerog_tpu_torch.curve.pippenger",
     "zerog_tpu_torch.poly", "zerog_tpu_torch.poly.eval",
+    "zerog_tpu_torch.poly.pntt", "zerog_tpu_torch.ops.limbmath",
     "zerog_tpu_torch.transcript", "zerog_tpu_torch.plonk",
+    "zerog_tpu_torch.plonk.mock", "zerog_tpu_torch.gadgets",
+    "zerog_tpu_torch.gadgets.bloom_filter", "zerog_tpu_torch.gadgets.wnn_circuit",
+    "zerog_tpu_torch.models", "zerog_tpu_torch.models.wnn",
+    "zerog_tpu_torch.models.synthetic",
     "zerog_tpu_torch.convert", "zerog_tpu_torch.kernels",
 ]
 
@@ -72,6 +77,7 @@ def _entry_points():
     from zerog_tpu_torch.curve import (
         Srs, fixed_base_expand, msm, points_to_device)
     from zerog_tpu_torch.curve.pippenger import build_window_table
+    from zerog_tpu_torch.models import make_synthetic_wnn
     from zerog_tpu_torch.poly import NttPlan, get_domain
 
     return {
@@ -83,12 +89,13 @@ def _entry_points():
         "build_window_table": lambda: build_window_table((None, None, None), 4),
         "points_to_device": lambda: points_to_device([(1, 2)]),
         "fixed_base_expand": lambda: fixed_base_expand((1, 2), [1]),
+        "Wnn.predict_fn": lambda: make_synthetic_wnn(28, 256, 1, 1).predict_fn(),
     }
 
 
 ENTRY_POINT_NAMES = ["Srs.setup", "Srs.read", "NttPlan", "get_domain", "msm",
                      "build_window_table", "points_to_device",
-                     "fixed_base_expand"]
+                     "fixed_base_expand", "Wnn.predict_fn"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINT_NAMES)
@@ -98,6 +105,20 @@ def test_entry_point_with_no_device_raises_without_cuda(name):
         pytest.skip("only meaningful on a machine without a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points()[name]()
+
+
+def test_public_helpers_need_a_device():
+    """The tensor-making helpers take no default device (the JAX package's
+    take none at all): a call without one raises."""
+    from zerog_tpu_torch.curve.jpoints import jac_infinity
+    from zerog_tpu_torch.field import jfr
+
+    with pytest.raises(TypeError):
+        jfr().const(5)
+    with pytest.raises(TypeError):
+        jac_infinity((2,))
+    assert jfr().const(5, device="cpu").device.type == "cpu"
+    assert jac_infinity((2,), device="cpu")[2].device.type == "cpu"
 
 
 def test_keygen_and_prove_follow_the_srs_device():
@@ -120,6 +141,7 @@ def test_cpu_tensors_take_plain_versions_and_leave_the_build_alone():
     from zerog_tpu_torch.curve.jpoints import jac_infinity
     from zerog_tpu_torch.field import FQ, to_device, to_limbs
     from zerog_tpu_torch.field import pfield
+    from zerog_tpu_torch.poly import pntt
 
     torch.set_num_threads(1)
     build_dir = pathlib.Path(kernels.BUILD_DIR)
@@ -130,7 +152,7 @@ def test_cpu_tensors_take_plain_versions_and_leave_the_build_alone():
     out = pfield.pfq().add(a, a)
     assert pfield.from_planes(out)[5, 0] == 10
 
-    inf = jac_infinity((2, 1, 3))                      # [R=2, G=1, C=3]
+    inf = jac_infinity((2, 1, 3), device="cpu")       # [R=2, G=1, C=3]
     flags = torch.zeros((2, 1, 3), dtype=torch.bool)
     pieces = pscan.flush_scan(inf, flags, affine=False)
     assert pieces[0].shape == (3, 1, 3, 16)
@@ -139,12 +161,19 @@ def test_cpu_tensors_take_plain_versions_and_leave_the_build_alone():
     assert torch.equal(folded[2], torch.zeros(1, 3, 16, dtype=torch.int64))
     bias = tuple(c[0, 0, 0] for c in inf)
     assert pfold.weighted(tuple(c[:, :, :2] for c in inf), bias)[0].shape == (1, 2, 16)
+    acc = torch.zeros((32, 2, 8), dtype=torch.int32)
+    zero8 = torch.zeros(8, dtype=torch.int32)
+    rowc = torch.zeros(64, dtype=torch.int32)
+    assert pntt.epilogue(acc, zero8, rowc).shape == (32, 2, 8)
+    assert pntt.epilogue(acc, zero8, rowc, out_bytes=False).shape == (8, 2, 8)
+    xb = torch.full((32, 2, 8), -128, dtype=torch.int8)
+    assert torch.equal(pntt.twiddle(xb, torch.zeros((8, 2, 4), dtype=torch.int32)), xb)
 
     assert kernels._LIB is None
     assert build_dir.exists() == existed
     assert set(kernels.launch_counts()) == {
         "field_binop", "flush_scan_affine", "flush_scan_jac", "sum_rows",
-        "weighted_fold"}
+        "weighted_fold", "ntt_epilogue", "ntt_twiddle"}
     assert all(v == 0 for v in kernels.launch_counts().values())
 
 
@@ -167,3 +196,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pfold.sum_rows_words(rows, rows, rows)
     with pytest.raises(ValueError, match="CUDA"):
         pfold.weighted_fold_words(rows, rows, rows, w, w, w)
+    from zerog_tpu_torch.poly import pntt
+
+    acc = torch.zeros((32, 2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pntt.epilogue_words(acc, acc[0, 0], acc[:, :, 0].reshape(64))
+    with pytest.raises(ValueError, match="CUDA"):
+        pntt.twiddle_words(acc.to(torch.int8), torch.zeros((8, 2, 4), dtype=torch.int32))

@@ -1,7 +1,7 @@
 """Carry state across from the JAX package without importing it.
 
-The system has no weights; what both packages must share to compute the same
-thing is the SRS, the window table and the proving key. These functions take
+What both packages must share to compute the same thing is the SRS, the
+window table, the proving key and the WNN model. These functions take
 plain Python and numpy data — the fields of the JAX package's objects, pulled
 out by the caller (``np.asarray`` on device arrays) — and make the port's
 objects from them. An SRS file written by either package's ``Srs.write`` and
@@ -17,11 +17,12 @@ from .curve.pippenger import WindowTable
 from .curve.srs import Srs
 from .device import resolve_device
 from .field import to_device
+from .models.wnn import Wnn
 from .plonk.cs import ConstraintSystem
 from .plonk.keygen import ProvingKey, VerifyingKey
 
 __all__ = ["srs_from_reference", "window_table_from_numpy",
-           "proving_key_from_reference"]
+           "proving_key_from_reference", "wnn_from_reference"]
 
 
 def _point(pt):
@@ -72,3 +73,20 @@ def proving_key_from_reference(k, circuit, fixed_values, sigma_values,
     as_obj = lambda col: np.asarray([int(v) for v in col], dtype=object)
     return ProvingKey(vk, [as_obj(c) for c in fixed_values],
                       [as_obj(c) for c in sigma_values])
+
+
+def wnn_from_reference(num_classes, num_filter_inputs, num_filter_entries,
+                       num_filter_hashes, p, bloom_filters, input_permutation,
+                       binarization_thresholds) -> Wnn:
+    """A :class:`Wnn` from the fields of a ``zerog_tpu.models.Wnn`` (Python
+    ints and numpy arrays), so that both packages prove the same model."""
+    return Wnn(
+        num_classes=int(num_classes),
+        num_filter_inputs=int(num_filter_inputs),
+        num_filter_entries=int(num_filter_entries),
+        num_filter_hashes=int(num_filter_hashes),
+        p=int(p),
+        bloom_filters=np.asarray(bloom_filters).astype(bool),
+        input_permutation=np.asarray(input_permutation).astype(np.int64),
+        binarization_thresholds=np.asarray(binarization_thresholds).astype(
+            np.uint16))

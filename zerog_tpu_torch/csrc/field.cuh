@@ -211,6 +211,39 @@ ZG_HD Fe fe_mul(const Fe& a, const Fe& b) {
     return fe_cond_sub_p<F>(r);
 }
 
+// Montgomery reduction of a 9-word value: v[0..7] the low 256 bits, v[8] the
+// high word. Returns v * 2^-256 mod p, canonical, for v < 2^256 * p (so that
+// (v + m p) / 2^256 < 2p before the one conditional subtract).
+// Word-serial: each step adds m p with m = t[0] * (-p^-1) mod 2^32, which
+// clears the low word, and shifts down by one word. t + m p stays under 2^288,
+// so nine words hold every intermediate.
+template <int F>
+ZG_HD Fe fe_redc9(const uint32_t v[ZG_NW + 1]) {
+    uint32_t t[ZG_NW + 1];
+#pragma unroll
+    for (int i = 0; i <= ZG_NW; i++) t[i] = v[i];
+#pragma unroll
+    for (int i = 0; i < ZG_NW; i++) {
+        uint32_t m = t[0] * zg_n0<F>();
+        uint64_t s = (uint64_t)m * (uint64_t)zg_p<F>(0) + (uint64_t)t[0];
+        uint64_t c = s >> 32;
+#pragma unroll
+        for (int j = 1; j < ZG_NW; j++) {
+            s = (uint64_t)m * (uint64_t)zg_p<F>(j) + (uint64_t)t[j] + c;
+            t[j - 1] = (uint32_t)s;
+            c = s >> 32;
+        }
+        s = (uint64_t)t[ZG_NW] + c;
+        t[ZG_NW - 1] = (uint32_t)s;
+        t[ZG_NW] = (uint32_t)(s >> 32);
+    }
+    // t < 2p < 2^255: the ninth word is 0
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < ZG_NW; i++) r.w[i] = t[i];
+    return fe_cond_sub_p<F>(r);
+}
+
 // ---- strided load/store -------------------------------------------------------
 // Word planes: element `col` of a row has word k at base[k * stride + col], so
 // a warp's 32 columns read 32 neighbouring words for each k.

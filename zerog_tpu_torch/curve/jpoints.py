@@ -29,9 +29,9 @@ def _one(device):
     return _f._c("one_mont", device)
 
 
-def jac_infinity(shape, device="cpu"):
-    """The identity as (1, 1, 0) in Montgomery form: pieces are compared
-    bytewise, so the encoding is part of the contract."""
+def jac_infinity(shape, device):
+    """The identity as (1, 1, 0) in Montgomery form on `device`: pieces are
+    compared bytewise, so the encoding is part of the contract."""
     z = torch.zeros(tuple(shape) + (16,), dtype=torch.int64, device=device)
     one = _one(z.device).expand(tuple(shape) + (16,))
     return (one, one, z)

@@ -148,8 +148,9 @@ class JField:
                 getattr(self, name)).to(device)
         return t
 
-    def const(self, x: int, mont: bool = True, device="cpu"):
-        """A host int as a tensor constant (Montgomery form by default)."""
+    def const(self, x: int, mont: bool = True, *, device):
+        """A host int as a tensor constant on `device` (Montgomery form by
+        default)."""
         v = self.params.to_mont(x % self.params.p) if mont else (x % self.params.p)
         return torch.from_numpy(_int_to_limbs_np(v)).to(device)
 

@@ -36,7 +36,7 @@ __all__ = ["build", "lib", "register", "launch_counts", "reset_launch_counts",
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("field_binop.cu", "flush_scan.cu", "fold.cu")
+SOURCES = ("field_binop.cu", "flush_scan.cu", "fold.cu", "ntt.cu")
 HEADERS = ("field.cuh",)
 LIB_NAME = "libzerog_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "zg_flush_scan_jac": [_P] * 10 + [_L, _L, _P],
     "zg_sum_rows": [_P] * 6 + [_L, _L, _P],
     "zg_weighted_fold": [_P] * 9 + [_L, _L, _P],
+    "zg_ntt_epilogue": [_P] * 5 + [_L, _L, _I, _P],
+    "zg_ntt_twiddle": [_P] * 3 + [_L, _L, _L, _P],
 }
 
 

@@ -3,6 +3,7 @@ from .expression import (
 )
 from .cs import ConstraintSystem, Column, Selector, TableColumn
 from .assignment import Assignment, Cell
+from .mock import MockProver
 from .keygen import keygen, VerifyingKey, ProvingKey
 from .prover import create_proof, Drbg
 from .verifier import verify_proof
@@ -10,7 +11,7 @@ from .verifier import verify_proof
 __all__ = [
     "Expr", "Constant", "FixedQuery", "AdviceQuery", "InstanceQuery", "Sum",
     "Product", "Scaled", "ConstraintSystem", "Column", "Selector",
-    "TableColumn", "Assignment", "Cell",
+    "TableColumn", "Assignment", "Cell", "MockProver",
     "keygen", "VerifyingKey", "ProvingKey", "create_proof", "Drbg",
     "verify_proof",
 ]

@@ -1,11 +1,14 @@
-"""Radix-2 NTT over Fr on tensors.
+"""NTT over Fr on tensors: radix-2 butterflies, and the int8-DFT engine for
+large transforms.
 
-Counterpart of the butterfly path of ``zerog_tpu/poly/ntt.py``.
-Decimation-in-time with a bit-reversal pre-permutation: every stage is a
+Counterpart of ``zerog_tpu/poly/ntt.py`` in the JAX package's default
+accelerator configuration: a transform of ``log_n >= MXU_MIN_LOG_N`` goes to
+the int8-DFT engine (:mod:`zerog_tpu_torch.poly.pntt`, kernels
+``ntt_epilogue`` and ``ntt_twiddle`` on a CUDA tensor, their plain versions
+on a CPU tensor), a smaller one to the butterflies. The butterflies are
+decimation-in-time with a bit-reversal pre-permutation: every stage is a
 full-width vectorized butterfly (one Montgomery mul + modular add/sub over
-the whole array). The int8-DFT matrix engine of the JAX package
-(``poly/pntt.py``) is not ported yet (ROADMAP.md, queue 1, item a); the
-butterflies give the same values bit for bit.
+the whole array). Both give the same values bit for bit.
 
 Twiddle tables are host-precomputed per domain (Montgomery form) and kept on
 the plan's device.
@@ -21,6 +24,7 @@ import torch
 from ..device import resolve_device
 from ..field import FR, jfr, to_limbs, to_device
 from ..field.params import bit_reverse
+from .pntt import get_pntt_plan, pntt_transform
 
 __all__ = ["NttPlan"]
 
@@ -42,6 +46,19 @@ class NttPlan:
         self._inv_tw = self._twiddles(self.omega_inv)
         self._n_inv_limbs = to_device(to_limbs(self.n_inv, FR, mont=True),
                                       self.device)
+
+    #: transforms of at least this size go to the int8-DFT engine
+    MXU_MIN_LOG_N = 12
+
+    def _mxu(self, inverse: bool):
+        """The engine's plan (cached, built at first use). The inverse plan
+        folds n^-1 into its outermost matrix."""
+        if inverse:
+            return get_pntt_plan(self.log_n, self.omega_inv, self.n_inv)
+        return get_pntt_plan(self.log_n, self.omega, 1)
+
+    def _use_mxu(self) -> bool:
+        return self.log_n >= self.MXU_MIN_LOG_N
 
     def _twiddles(self, omega: int):
         tables = []
@@ -77,10 +94,14 @@ class NttPlan:
 
     def ntt(self, coeffs):
         """Coefficients -> evaluations at [omega^0, omega^1, ...]."""
+        if self._use_mxu():
+            return pntt_transform(self._mxu(False), coeffs)
         return self._transform(coeffs, self._fwd_tw)
 
     def intt(self, evals):
         """Evaluations -> coefficients."""
+        if self._use_mxu():
+            return pntt_transform(self._mxu(True), evals)
         return self._intt_impl(evals)
 
 
