@@ -16,6 +16,14 @@ through the kernels, and checks the results by the repo's own means
 exact one, proofs verify, tampered proofs and wrong instances rejected, equal
 seeds give equal bytes, engine and butterflies give equal bytes).
 
+``flush_scan_jac`` and ``sum_rows`` are also held and timed on dense inputs
+(no identity row, so no add can be skipped), and on the operands of every
+launch of the warm WNN proof (``path_kernels`` line: the launches recorded
+during that proof, each timed again, the share of identity rows, the adds
+really required and the longest chain of them, and the launch with the
+longest chain held against the plain version). Their ``bound_ms`` counts
+the required adds only; ``bound_all_rows_ms`` counts an add for every row.
+
 It prints one JSON object a line; any phase that fails raises and the run
 exits non-zero. Without a CUDA device it exits non-zero at once. The last
 line is ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
@@ -160,6 +168,136 @@ def _max_abs_err(got, ref):
     return max(int((g - r).abs().max()) for g, r in zip(got, ref))
 
 
+def _fold_work(z, flags=None):
+    """The adds a Jacobian fold really needs, read from its operands: z word
+    planes [R, 8, C] and flush flags uint8 [R, C] (None: one fold a column,
+    as in ``sum_rows``). A segment runs from row 0 or a flagged row to the
+    next flag; its first non-identity row is copied, every later one is
+    added. Returns the share of identity rows (z = 0), the required adds and
+    the longest chain of them in one segment."""
+    nz = (z != 0).any(dim=1)
+    r, c = nz.shape
+    seg = (torch.zeros_like(nz, dtype=torch.int64) if flags is None
+           else torch.cumsum(flags.to(torch.int64), dim=0))
+    key = seg + (r + 1) * torch.arange(c, device=z.device)[None, :]
+    adds = (torch.bincount(key[nz], minlength=(r + 1) * c) - 1).clamp(min=0)
+    return dict(identity_share=1.0 - float(nz.float().mean()),
+                required_adds=int(adds.sum()), longest_chain=int(adds.max()),
+                all_rows_adds=r * c)
+
+
+def _add_bounds(nbytes, work):
+    """bound_ms from the required adds (16 products of 128 multiply-adds
+    each), and beside it the bound that counts an add for every row."""
+    b, by = bound(nbytes, work["required_adds"] * MULS_ADD * MADS_PER_MUL)
+    return dict(bound_ms=b, bound_by=by, bound_all_rows_ms=bound(
+        nbytes, work["all_rows_adds"] * MULS_ADD * MADS_PER_MUL)[0])
+
+
+def _scan_jac_case(planes, check=True):
+    """One Jacobian flush scan on word planes (sx, sy, sz, flags): launch,
+    hold against the plain version limb for limb (if `check`), time.
+    Returns (result dict, pieces as limbs [R+1, 1, C, 16])."""
+    sx, sy, sz, fl = planes
+    r, _, ct = sx.shape
+    out = pscan.flush_scan_jac_words(*planes)
+    sync()
+    got = tuple(pscan.pieces_from_planes(
+        torch.cat([out[i], out[3 + i][None]], dim=0), 1, ct) for i in range(3))
+    res = _fold_work(sz, fl)
+    if check:
+        stream = tuple(pscan.pieces_from_planes(p, 1, ct) for p in (sx, sy, sz))
+        ref, res["plain_ms"] = _timed_plain(lambda: pscan.flush_scan_plain(
+            stream, fl.bool().reshape(r, 1, ct), affine=False))
+        if not all(_eq(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"flush_scan_jac R={r} C={ct} != plain version")
+        res["max_abs_err"] = _max_abs_err(got, ref)
+        del ref
+    res["ms"] = time_ms(lambda: pscan.flush_scan_jac_words(*planes), reps=3)
+    res.update(_add_bounds(r * ct * (3 * 32 + 1 + 3 * 32) + 3 * 32 * ct, res))
+    res["shape"] = f"R={r}, columns={ct}"
+    return res, got
+
+
+def _merge_work(works):
+    """The work of several folds taken together."""
+    return dict(identity_share=sum(w["identity_share"] * w["all_rows_adds"]
+                                   for w in works)
+                / sum(w["all_rows_adds"] for w in works),
+                required_adds=sum(w["required_adds"] for w in works),
+                longest_chain=max(w["longest_chain"] for w in works),
+                all_rows_adds=sum(w["all_rows_adds"] for w in works))
+
+
+def _sum_rows_case(jobs, check=True):
+    """`jobs`: triples of word planes [L, 8, C], the folds of one MSM batch.
+    Launch them (one launch), hold each job against the plain version limb
+    for limb (if `check`), time the launch and each job alone."""
+    def run():
+        out = pfold.sum_rows_words(*(t for job in jobs for t in job))
+        return [out[3 * j:3 * j + 3] for j in range(len(jobs))]
+
+    outs = run()
+    sync()
+    res = _merge_work([_fold_work(job[2]) for job in jobs])
+    nbytes = sum(job[0].shape[0] * job[0].shape[2] * 96 + 96 * job[0].shape[2]
+                 for job in jobs)
+    if check:
+        res["plain_ms"], res["max_abs_err"] = 0.0, 0
+        for job, out in zip(jobs, outs):
+            l, _, ct = job[0].shape
+            xs = tuple(kernels.from_word_planes(p).reshape(l, 1, ct, 16)
+                       for p in job)
+            ref, plain = _timed_plain(lambda: pfold.sum_rows_plain(xs))
+            got = tuple(kernels.from_word_planes(o).reshape(1, ct, 16)
+                        for o in out)
+            if not all(_eq(a, b) for a, b in zip(got, ref)):
+                raise AssertionError(f"sum_rows L={l} C={ct} != plain version")
+            res["plain_ms"] += plain
+            res["max_abs_err"] = max(res["max_abs_err"], _max_abs_err(got, ref))
+    res["ms"] = time_ms(run)
+    if len(jobs) > 1:
+        res["ms_by_job"] = [time_ms(lambda: pfold.sum_rows_words(*job))
+                            for job in jobs]
+    res.update(_add_bounds(nbytes, res))
+    res["shape"] = " + ".join(f"L={j[0].shape[0]} x lanes={j[0].shape[2]}"
+                              for j in jobs)
+    return res
+
+
+class _MsmRecorder:
+    """Records the operands and results of every ``flush_scan_jac`` and
+    ``sum_rows`` launch while it is active. The wrappers count their launches
+    on the module's name, which is the recorder's while it is active, so it
+    carries the kernel's name and hands its count back on exit."""
+
+    def __enter__(self):
+        self.scans, self.folds = [], []
+        self._saved = (pscan.flush_scan_jac_words, pfold.sum_rows_words)
+        scan, fold = self._saved
+
+        def rec_scan(*planes):
+            out = scan(*planes)
+            self.scans.append((planes, out))
+            return out
+
+        def rec_fold(*planes):
+            out = fold(*planes)
+            self.folds.append((planes, out))
+            return out
+
+        for rec, real in ((rec_scan, scan), (rec_fold, fold)):
+            rec.kernel_name, rec.launches = real.kernel_name, 0
+        self._recs = (rec_scan, rec_fold)
+        pscan.flush_scan_jac_words, pfold.sum_rows_words = self._recs
+        return self
+
+    def __exit__(self, *exc):
+        pscan.flush_scan_jac_words, pfold.sum_rows_words = self._saved
+        for rec, real in zip(self._recs, self._saved):
+            real.launches += rec.launches
+
+
 def _point_pool(n_pool):
     """n_pool distinct random on-curve points as device mont limbs."""
     rnd = random.Random(SEED)
@@ -268,59 +406,23 @@ def phase_kernels():
     ct3 = g * cdim3
     del got, ref
     planes3 = [pscan.stream_to_planes(t) for t in stream3 + (flags3,)]
-
-    def run_jac():
-        return pscan.flush_scan_jac_words(*planes3)
-
-    out = run_jac()
-    sync()
-    got = tuple(pscan.pieces_from_planes(
-        torch.cat([out[i], out[3 + i][None]], dim=0), g, cdim3) for i in range(3))
-    t0 = time.time()
-    ref = pscan.flush_scan_plain(stream3, flags3, affine=False)
-    sync()
-    plain3 = (time.time() - t0) * 1e3
-    if not all(_eq(a, b) for a, b in zip(got, ref)):
-        raise AssertionError("flush_scan_jac != plain version")
-    ms3 = time_ms(run_jac, reps=3)
-    b3, by3 = bound(r_rows * ct3 * (3 * 32 + 1 + 3 * 32) + 3 * 32 * ct3,
-                    r_rows * ct3 * MULS_ADD * MADS_PER_MUL)
-    res["flush_scan_jac"] = dict(
-        ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3,
-        max_abs_err=_max_abs_err(got, ref), shape=f"R={r_rows}, columns={ct3}")
-    del out, planes3, stream3
+    res["flush_scan_jac"], got = _scan_jac_case(planes3)
+    got = tuple(t.reshape(r_rows + 1, g, cdim3, 16) for t in got)
+    del planes3, stream3
 
     # -- kernel 4: sum_rows at both fold shapes of c = 13 ---------------------
     lo_bits = c // 2
     hi_n, lo_n = 1 << (c - lo_bits), 1 << lo_bits
     flat = tuple(t.reshape(-1, 16) for t in got)     # jac pieces incl. zeros
-    ms4 = plain4 = 0.0
-    bnd4 = 0.0
-    err4 = 0
-    shapes4 = []
-    for l_rows, width in ((2 * lo_n, hi_n), (2 * hi_n, lo_n)):
+    fold_shapes = ((2 * lo_n, hi_n), (2 * hi_n, lo_n))
+    jobs4 = []
+    for l_rows, width in fold_shapes:
         cnt = l_rows * g * width
         pick = torch.randint(0, flat[0].shape[0], (cnt,), generator=g_torch).to(DEV)
-        xs = tuple(t[pick].reshape(l_rows, g, width, 16) for t in flat)
-        pl = [pfold._rows_to_planes(t) for t in xs]
-        out4 = pfold.sum_rows_words(*pl)
-        sync()
-        got4 = tuple(kernels.from_word_planes(o).reshape(g, width, 16) for o in out4)
-        t0 = time.time()
-        ref4 = pfold.sum_rows_plain(xs)
-        sync()
-        plain4 += (time.time() - t0) * 1e3
-        if not all(_eq(a, b) for a, b in zip(got4, ref4)):
-            raise AssertionError(f"sum_rows L={l_rows} != plain version")
-        err4 = max(err4, _max_abs_err(got4, ref4))
-        ms4 += time_ms(lambda: pfold.sum_rows_words(*pl))
-        lanes = g * width
-        bnd4 += bound(l_rows * lanes * 96 + 96 * lanes,
-                      l_rows * lanes * MULS_ADD * MADS_PER_MUL)[0]
-        shapes4.append(f"L={l_rows} x lanes={lanes}")
-    res["sum_rows"] = dict(ms=ms4, plain_ms=plain4, bound_ms=bnd4,
-                           bound_by="operations", max_abs_err=err4,
-                           shape=" + ".join(shapes4) + " (one MSM batch)")
+        jobs4.append(tuple(pfold._rows_to_planes(t[pick].reshape(l_rows, g, width, 16))
+                           for t in flat))
+    res["sum_rows"] = _sum_rows_case(jobs4)
+    res["sum_rows"]["shape"] += " (one MSM batch)"
 
     # -- kernel 5: weighted_fold, K = 128 rows over 16 lanes --------------------
     k_rows = hi_n
@@ -343,9 +445,34 @@ def phase_kernels():
     lanes = g * 2
     b5, by5 = bound(k_rows * lanes * 96 + 2 * 96 * lanes,
                     k_rows * lanes * 2 * MULS_ADD * MADS_PER_MUL)
+    # 16 lanes, one warp: each row's two adds are a chain of dependent
+    # products, so the time an add and a product is the latency of one
     res["weighted_fold"] = dict(
         ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5,
-        max_abs_err=_max_abs_err(got5, ref5), shape=f"K={k_rows} x lanes={lanes}")
+        max_abs_err=_max_abs_err(got5, ref5), shape=f"K={k_rows} x lanes={lanes}",
+        us_per_add=ms5 * 1e3 / (2 * k_rows),
+        us_per_product=ms5 * 1e3 / (2 * k_rows * MULS_ADD))
+
+    # -- dense inputs for kernels 3 and 4: no identity rows at all, so that
+    # no row can be skipped (the inputs above are ~97 % identities) ---------
+    g_dense = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    real = (flat[2] != 0).any(dim=-1)
+    flat_real = tuple(t[real] for t in flat)
+
+    def dense_pick(shape):
+        pick = torch.randint(0, flat_real[0].shape[0], (int(np.prod(shape)),),
+                             generator=g_dense).to(DEV)
+        return tuple(t[pick].reshape(shape + (16,)) for t in flat_real)
+
+    stream_d = dense_pick((r_rows, g, cdim3))
+    flags_d = (torch.rand((r_rows, g, cdim3), generator=g_dense) < 0.05).to(DEV)
+    flags_d[0] = True
+    res["flush_scan_jac"]["dense"], _ = _scan_jac_case(
+        [pscan.stream_to_planes(t) for t in stream_d + (flags_d,)])
+    del stream_d
+    res["sum_rows"]["dense"] = _sum_rows_case(
+        [tuple(pfold._rows_to_planes(t) for t in dense_pick((l_rows, g, width)))
+         for l_rows, width in fold_shapes])
 
     emit(dict(phase="kernel_check", equal_to_plain=True, tolerance=0,
               kernels=res, check_launches=kernels.launch_counts()))
@@ -773,9 +900,10 @@ def phase_wnn(srs):
     t_prove1 = time.time() - t0
     timings = {}
     t0 = time.time()
-    proof2, out2 = wnn.proof(pk, srs, image, rng_seed=b"chip-smoke-wnn",
-                             timings=timings)
-    sync()
+    with _MsmRecorder() as rec:
+        proof2, out2 = wnn.proof(pk, srs, image, rng_seed=b"chip-smoke-wnn",
+                                 timings=timings)
+        sync()
     t_prove2 = time.time() - t0
     t0 = time.time()
     ok = wnn.verify_proof(proof2, srs, pk.vk, out2)
@@ -830,10 +958,69 @@ def phase_wnn(srs):
               timings={k: round(v, 4) for k, v in timings.items()},
               butterflies_prove_second_s=round(t_prove_b, 3),
               butterflies_timings={k: round(v, 4) for k, v in timings_b.items()},
-              proof_bytes=len(proof2), launches=launches, verified=True,
+              proof_bytes=len(proof2),
+              proof_sha256=hashlib.sha256(proof2).hexdigest(),
+              launches=launches, verified=True,
               tamper_rejected=True, wrong_scores_rejected=True,
               deterministic=True, engine_equals_butterflies_bytes=True))
-    return launches
+    return launches, rec
+
+
+def phase_path_kernels(rec):
+    """Kernels 3 and 4 on the operands of the warm WNN proof (every launch
+    recorded by `rec`): each launch timed again, the work it needs, and the
+    launch with the longest chain of required adds held against the plain
+    version limb for limb (its pieces are sorted, with long identity runs)."""
+    out = {}
+    scans = []
+    for planes, _ in rec.scans:
+        res = _fold_work(planes[2], planes[3])
+        res["ms"] = time_ms(lambda: pscan.flush_scan_jac_words(*planes), reps=3)
+        r, _, ct = planes[0].shape
+        res.update(_add_bounds(r * ct * (3 * 32 + 1 + 3 * 32) + 3 * 32 * ct, res))
+        scans.append(res)
+    folds = []
+    for planes, _ in rec.folds:
+        jobs = [planes[i:i + 3] for i in range(0, len(planes), 3)]
+        folds.append(_sum_rows_case(jobs, check=False))
+    for name, runs, recorded in (("flush_scan_jac", scans, rec.scans),
+                                 ("sum_rows", folds, rec.folds)):
+        if not runs:
+            raise AssertionError(f"the warm WNN proof launched no {name}")
+        pick = max(range(len(runs)), key=lambda i: (
+            runs[i]["longest_chain"], runs[i]["required_adds"]))
+        planes, kernel_out = recorded[pick]
+        if name == "flush_scan_jac":
+            checked, _ = _scan_jac_case(planes)
+        else:
+            checked = _sum_rows_case(
+                [planes[i:i + 3] for i in range(0, len(planes), 3)])
+        # the recorded launch itself gave the same limbs as this check's
+        again = (pscan.flush_scan_jac_words(*planes) if name == "flush_scan_jac"
+                 else pfold.sum_rows_words(*planes))
+        if not all(_eq(a, b) for a, b in zip(kernel_out, again)):
+            raise AssertionError(f"{name}: the recorded launch and its rerun differ")
+        work = _merge_work(runs)
+        out[name] = dict(
+            launches_per_proof=len(runs),
+            ms_per_proof=sum(r["ms"] for r in runs),
+            max_launch_ms=max(r["ms"] for r in runs),
+            bound_ms_per_proof=sum(r["bound_ms"] for r in runs),
+            bound_all_rows_ms_per_proof=sum(r["bound_all_rows_ms"] for r in runs),
+            identity_share=work["identity_share"],
+            required_adds=work["required_adds"],
+            all_rows_adds=work["all_rows_adds"],
+            longest_chain=work["longest_chain"],
+            checked_launch=dict(index=pick, shape=checked["shape"],
+                                plain_ms=checked["plain_ms"],
+                                max_abs_err=checked["max_abs_err"],
+                                longest_chain=checked["longest_chain"]),
+            launches=[dict(ms=r["ms"], required_adds=r["required_adds"],
+                           longest_chain=r["longest_chain"],
+                           identity_share=round(r["identity_share"], 4))
+                      for r in runs])
+    emit(dict(phase="path_kernels", equal_to_plain=True, tolerance=0, **out))
+    return out
 
 
 # ---- main --------------------------------------------------------------------------
@@ -858,12 +1045,15 @@ def main():
         tiny_model().get_circuit(np.zeros((28, 28), np.uint8)).configure(cs)
         kres.update(phase_ntt(cs.num_advice))
     by_path = {}
+    path_res = {}
     if {"commit", "prove", "wnn"} & set(phases):
         srs = phase_commit()
         if "prove" in phases:
             by_path["prove"] = phase_prove(srs)
         if "wnn" in phases:
-            by_path["wnn"] = phase_wnn(srs)
+            by_path["wnn"], rec = phase_wnn(srs)
+            path_res = phase_path_kernels(rec)
+            del rec
     main_path = by_path.get("wnn", by_path.get("prove", {}))
 
     rows = []
@@ -877,6 +1067,13 @@ def main():
             plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
             bound_by=r.get("bound_by"), library_ms=None,
             shape=r.get("shape"), on_main_path=name != "field_binop")
+        for key in ("dense", "us_per_add", "us_per_product",
+                    "bound_all_rows_ms", "required_adds", "identity_share"):
+            if key in r:
+                row[key] = r[key]
+        if name in path_res:
+            row["wnn_warm_proof"] = {k: v for k, v in path_res[name].items()
+                                     if k != "launches"}
         if name == "ntt_epilogue" and r:
             row.update(int_mm_ms=r["int_mm_ms"],
                        with_twiddle="not on the path; checked on the path's "

@@ -9,9 +9,11 @@
 // ends fully reduced in [0, p), so its canonical limbs equal those of the
 // separated 16-bit form bit for bit.
 //
-// Everything here is plain C++ over uint32_t/uint64_t: the same header builds
-// for the card (nvcc) and for a host compiler, which runs the same per-column
-// functions in a loop.
+// On the card (__CUDA_ARCH__) the product, add, subtract and conditional
+// subtract are PTX carry chains (mad.lo.cc / madc.hi.cc, add.cc, sub.cc);
+// for a host compiler the same functions are plain C++ over uint64_t. The
+// same header builds for both, and the host build runs the kernels'
+// per-thread functions in a loop; the two bodies give the same words.
 #pragma once
 #include <stdint.h>
 
@@ -19,6 +21,37 @@
 #define ZG_HD __host__ __device__ __forceinline__
 #else
 #define ZG_HD inline
+#endif
+
+#ifdef __CUDA_ARCH__
+// ---- PTX primitives -----------------------------------------------------------
+// One instruction each. The carry flag set by a .cc instruction is read by the
+// next c-instruction; nothing between two of them touches it.
+#define ZG_MUL_LO(d, a, b) \
+    asm volatile("mul.lo.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#define ZG_MUL_HI(d, a, b) \
+    asm volatile("mul.hi.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#define ZG_MAD_LO_CC(d, a, b, c) \
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
+#define ZG_MADC_LO_CC(d, a, b, c) \
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
+#define ZG_MADC_HI_CC(d, a, b, c) \
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
+#define ZG_MADC_HI(d, a, b, c) \
+    asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
+#define ZG_ADD_CC(d, a, b) \
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#define ZG_ADDC_CC(d, a, b) \
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#define ZG_ADDC(d, a, b) \
+    asm volatile("addc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#define ZG_SUB_CC(d, a, b) \
+    asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#define ZG_SUBC_CC(d, a, b) \
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+#define ZG_SUBC(d, a, b) \
+    asm volatile("subc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
+// ---- end of PTX primitives ------------------------------------------------------
 #endif
 
 #define ZG_NW 8  // 32-bit words per element
@@ -126,6 +159,16 @@ ZG_HD Fe fe_select(bool c, const Fe& a, const Fe& b) {
 template <int F>
 ZG_HD Fe fe_cond_sub_p(const Fe& r) {
     Fe d;
+#ifdef __CUDA_ARCH__
+    uint32_t borrow;
+    ZG_SUB_CC(d.w[0], r.w[0], zg_p<F>(0));
+#pragma unroll
+    for (int i = 1; i < ZG_NW; i++) ZG_SUBC_CC(d.w[i], r.w[i], zg_p<F>(i));
+    ZG_SUBC(borrow, 0u, 0u);  // all ones where r < p
+#pragma unroll
+    for (int i = 0; i < ZG_NW; i++) d.w[i] = (r.w[i] & borrow) | (d.w[i] & ~borrow);
+    return d;
+#else
     uint64_t borrow = 0;
 #pragma unroll
     for (int i = 0; i < ZG_NW; i++) {
@@ -134,11 +177,19 @@ ZG_HD Fe fe_cond_sub_p(const Fe& r) {
         borrow = (s >> 32) & 1u;
     }
     return fe_select(borrow == 0, d, r);
+#endif
 }
 
 template <int F>
 ZG_HD Fe fe_add(const Fe& a, const Fe& b) {
     Fe s;
+    // a + b < 2p < 2^255: no carry out of the top word
+#ifdef __CUDA_ARCH__
+    ZG_ADD_CC(s.w[0], a.w[0], b.w[0]);
+#pragma unroll
+    for (int i = 1; i < ZG_NW - 1; i++) ZG_ADDC_CC(s.w[i], a.w[i], b.w[i]);
+    ZG_ADDC(s.w[ZG_NW - 1], a.w[ZG_NW - 1], b.w[ZG_NW - 1]);
+#else
     uint64_t carry = 0;
 #pragma unroll
     for (int i = 0; i < ZG_NW; i++) {
@@ -146,13 +197,27 @@ ZG_HD Fe fe_add(const Fe& a, const Fe& b) {
         s.w[i] = (uint32_t)t;
         carry = t >> 32;
     }
-    // a + b < 2p < 2^255: no carry out of the top word
+#endif
     return fe_cond_sub_p<F>(s);
 }
 
 template <int F>
 ZG_HD Fe fe_sub(const Fe& a, const Fe& b) {
     Fe d;
+#ifdef __CUDA_ARCH__
+    // a - b, then p & (all ones where a < b) added back; the wrap past 2^256
+    // cancels the borrow
+    uint32_t mask;
+    ZG_SUB_CC(d.w[0], a.w[0], b.w[0]);
+#pragma unroll
+    for (int i = 1; i < ZG_NW; i++) ZG_SUBC_CC(d.w[i], a.w[i], b.w[i]);
+    ZG_SUBC(mask, 0u, 0u);
+    ZG_ADD_CC(d.w[0], d.w[0], zg_p<F>(0) & mask);
+#pragma unroll
+    for (int i = 1; i < ZG_NW - 1; i++) ZG_ADDC_CC(d.w[i], d.w[i], zg_p<F>(i) & mask);
+    ZG_ADDC(d.w[ZG_NW - 1], d.w[ZG_NW - 1], zg_p<F>(ZG_NW - 1) & mask);
+    return d;
+#else
     uint64_t borrow = 0;
 #pragma unroll
     for (int i = 0; i < ZG_NW; i++) {
@@ -170,11 +235,93 @@ ZG_HD Fe fe_sub(const Fe& a, const Fe& b) {
         carry = t >> 32;
     }
     return fe_select(borrow != 0, e, d);
+#endif
 }
+
+#ifdef __CUDA_ARCH__
+// One reduction step of the product below: T += m p with m = T[0] (-p^-1),
+// which clears word 0. T = e + 2^32 o (e: words 0..7, o: words 1..8). The
+// odd words of p go into o and the even ones into e, two independent carry
+// chains; e's carry out of word 7 lands in o[7] (word 8). o's carry out of
+// word 8 is 0, since T < 2^288 throughout (T < 2p + 2^33 p).
+template <int F>
+__device__ __forceinline__ void fe_mul_reduce(uint32_t e[ZG_NW], uint32_t o[ZG_NW]) {
+    const uint32_t m = e[0] * zg_n0<F>();
+    ZG_MAD_LO_CC(o[0], zg_p<F>(1), m, o[0]);
+    ZG_MADC_HI_CC(o[1], zg_p<F>(1), m, o[1]);
+#pragma unroll
+    for (int j = 2; j < ZG_NW - 2; j += 2) {
+        ZG_MADC_LO_CC(o[j], zg_p<F>(j + 1), m, o[j]);
+        ZG_MADC_HI_CC(o[j + 1], zg_p<F>(j + 1), m, o[j + 1]);
+    }
+    ZG_MADC_LO_CC(o[ZG_NW - 2], zg_p<F>(ZG_NW - 1), m, o[ZG_NW - 2]);
+    ZG_MADC_HI(o[ZG_NW - 1], zg_p<F>(ZG_NW - 1), m, o[ZG_NW - 1]);
+    ZG_MAD_LO_CC(e[0], zg_p<F>(0), m, e[0]);
+    ZG_MADC_HI_CC(e[1], zg_p<F>(0), m, e[1]);
+#pragma unroll
+    for (int j = 2; j < ZG_NW; j += 2) {
+        ZG_MADC_LO_CC(e[j], zg_p<F>(j), m, e[j]);
+        ZG_MADC_HI_CC(e[j + 1], zg_p<F>(j), m, e[j + 1]);
+    }
+    ZG_ADDC(o[ZG_NW - 1], o[ZG_NW - 1], 0u);
+}
+#endif
 
 // Montgomery product a * b * 2^-256 mod p, a and b in [0, p).
 template <int F>
 ZG_HD Fe fe_mul(const Fe& a, const Fe& b) {
+#ifdef __CUDA_ARCH__
+    // CIOS, one word of b a step, with the accumulator T split as
+    // e + 2^32 o: e takes the products of a's even words, o those of its odd
+    // words, so that each step runs two carry chains that do not depend on
+    // each other, and likewise for m p.
+    uint32_t e[ZG_NW], o[ZG_NW];
+#pragma unroll
+    for (int j = 0; j < ZG_NW; j += 2) {
+        ZG_MUL_LO(e[j], a.w[j], b.w[0]);
+        ZG_MUL_HI(e[j + 1], a.w[j], b.w[0]);
+        ZG_MUL_LO(o[j], a.w[j + 1], b.w[0]);
+        ZG_MUL_HI(o[j + 1], a.w[j + 1], b.w[0]);
+    }
+    fe_mul_reduce<F>(e, o);
+#pragma unroll
+    for (int i = 1; i < ZG_NW; i++) {
+        // T / 2^32 (e[0] is 0): the next e is o + e[1] at word 0, its carry
+        // into word 1 taken up by the first step of the next o, which is
+        // e[2..7] at words 1..6 plus the products of a's odd words
+        const uint32_t bi = b.w[i];
+        uint32_t ne[ZG_NW], no[ZG_NW];
+        ZG_ADD_CC(ne[0], o[0], e[1]);
+#pragma unroll
+        for (int j = 0; j < ZG_NW - 2; j += 2) {
+            ZG_MADC_LO_CC(no[j], a.w[j + 1], bi, e[j + 2]);
+            ZG_MADC_HI_CC(no[j + 1], a.w[j + 1], bi, e[j + 3]);
+        }
+        ZG_MADC_LO_CC(no[ZG_NW - 2], a.w[ZG_NW - 1], bi, 0u);
+        ZG_MADC_HI(no[ZG_NW - 1], a.w[ZG_NW - 1], bi, 0u);
+        ZG_MAD_LO_CC(ne[0], a.w[0], bi, ne[0]);
+        ZG_MADC_HI_CC(ne[1], a.w[0], bi, o[1]);
+#pragma unroll
+        for (int j = 2; j < ZG_NW; j += 2) {
+            ZG_MADC_LO_CC(ne[j], a.w[j], bi, o[j]);
+            ZG_MADC_HI_CC(ne[j + 1], a.w[j], bi, o[j + 1]);
+        }
+        ZG_ADDC(no[ZG_NW - 1], no[ZG_NW - 1], 0u);
+        fe_mul_reduce<F>(ne, no);
+#pragma unroll
+        for (int j = 0; j < ZG_NW; j++) {
+            e[j] = ne[j];
+            o[j] = no[j];
+        }
+    }
+    // T / 2^32 < 2p < 2^255 in eight words
+    Fe r;
+    ZG_ADD_CC(r.w[0], o[0], e[1]);
+#pragma unroll
+    for (int j = 1; j < ZG_NW - 1; j++) ZG_ADDC_CC(r.w[j], o[j], e[j + 1]);
+    ZG_ADDC(r.w[ZG_NW - 1], o[ZG_NW - 1], 0u);
+    return fe_cond_sub_p<F>(r);
+#else
     uint32_t t[ZG_NW + 2];
 #pragma unroll
     for (int i = 0; i < ZG_NW + 2; i++) t[i] = 0u;
@@ -209,6 +356,7 @@ ZG_HD Fe fe_mul(const Fe& a, const Fe& b) {
 #pragma unroll
     for (int i = 0; i < ZG_NW; i++) r.w[i] = t[i];
     return fe_cond_sub_p<F>(r);
+#endif
 }
 
 // Montgomery reduction of a 9-word value: v[0..7] the low 256 bits, v[8] the
@@ -308,27 +456,108 @@ ZG_HD Jac jac_madd_incomplete(const Jac& p, const Fe& qx, const Fe& qy, bool qva
     return jac_select(qvalid, res, p);
 }
 
-// General Jacobian incomplete add (12M + 4S); mirrors
-// jpoints.jac_add_incomplete.
-ZG_HD Jac jac_add_incomplete(const Jac& p, const Jac& q) {
-    Fe z1z1 = fe_mul<0>(p.z, p.z);
-    Fe z2z2 = fe_mul<0>(q.z, q.z);
-    Fe u1 = fe_mul<0>(p.x, z2z2);
-    Fe u2 = fe_mul<0>(q.x, z1z1);
-    Fe s1 = fe_mul<0>(p.y, fe_mul<0>(q.z, z2z2));
-    Fe s2 = fe_mul<0>(q.y, fe_mul<0>(p.z, z1z1));
-    Fe h = fe_sub<0>(u2, u1);
-    Fe r = fe_sub<0>(s2, s1);
-    Fe hh = fe_mul<0>(h, h);
-    Fe hhh = fe_mul<0>(h, hh);
-    Fe v = fe_mul<0>(u1, hh);
-    Fe rr = fe_mul<0>(r, r);
+
+// ---- the general incomplete add, its products split over G threads ----------------
+// The 16 products of the general Jacobian incomplete add (12M + 4S), in five
+// levels; the products of one level do not depend on each other:
+//   1: Z1Z1, Z2Z2, Z1 Z2          2: U1, U2, Z2 Z2Z2, Z1 Z1Z1
+//   3: S1, S2, HH                 4: HHH, V, RR, Z3
+//   5: R (V - X3), S1 HHH
+// On the card a group of G neighbouring threads of a warp works on one add:
+// in each round of a level, thread j of the group computes the level's next
+// product j and the group exchanges them by shuffles; the adds and
+// subtracts run in every thread of the group. Every product has the
+// operands of jpoints.jac_add_incomplete's and ends canonical, so the limbs
+// do not depend on G. G = 1 is the one-thread add; a host compiler always
+// computes every product in one thread.
+template <int N, int G>
+ZG_HD void add_level(int j, const Fe (&a)[N], const Fe (&b)[N], Fe (&r)[N]) {
+#ifdef __CUDA_ARCH__
+    if (G > 1) {
+        const unsigned base = (threadIdx.x & 31u) & ~(unsigned)(G - 1);
+        const unsigned mask = ((1u << G) - 1u) << base;
+#pragma unroll
+        for (int k0 = 0; k0 < N; k0 += G) {
+            Fe x = a[k0], y = b[k0];
+#pragma unroll
+            for (int i = 1; i < G && k0 + i < N; i++) {
+                x = fe_select(j == i, a[k0 + i], x);
+                y = fe_select(j == i, b[k0 + i], y);
+            }
+            // threads past the level's last product repeat one nobody reads
+            const Fe m = fe_mul<0>(x, y);
+#pragma unroll
+            for (int i = 0; i < G && k0 + i < N; i++)
+#pragma unroll
+                for (int w = 0; w < ZG_NW; w++)
+                    r[k0 + i].w[w] = __shfl_sync(mask, m.w[w], base + i);
+        }
+        return;
+    }
+#endif
+    (void)j;
+#pragma unroll
+    for (int k = 0; k < N; k++) r[k] = fe_mul<0>(a[k], b[k]);
+}
+
+// The formulas of the general incomplete add, without its identity selects;
+// j is the thread's index in its group of G (0 on a host).
+template <int G>
+ZG_HD Jac jac_add_formulas(const Jac& p, const Jac& q, int j) {
+    Fe l1[3];
+    {
+        const Fe a[3] = {p.z, q.z, p.z}, b[3] = {p.z, q.z, q.z};
+        add_level<3, G>(j, a, b, l1);
+    }
+    const Fe z1z1 = l1[0], z2z2 = l1[1], z1z2 = l1[2];
+    Fe l2[4];
+    {
+        const Fe a[4] = {p.x, q.x, q.z, p.z}, b[4] = {z2z2, z1z1, z2z2, z1z1};
+        add_level<4, G>(j, a, b, l2);
+    }
+    const Fe u1 = l2[0], u2 = l2[1];
+    const Fe h = fe_sub<0>(u2, u1);
+    Fe l3[3];
+    {
+        const Fe a[3] = {p.y, q.y, h}, b[3] = {l2[2], l2[3], h};
+        add_level<3, G>(j, a, b, l3);
+    }
+    const Fe s1 = l3[0], hh = l3[2];
+    const Fe r = fe_sub<0>(l3[1], s1);
+    Fe l4[4];
+    {
+        const Fe a[4] = {h, u1, r, z1z2}, b[4] = {hh, hh, r, h};
+        add_level<4, G>(j, a, b, l4);
+    }
+    const Fe hhh = l4[0], v = l4[1];
     Jac res;
-    res.x = fe_sub<0>(fe_sub<0>(rr, hhh), fe_add<0>(v, v));
-    res.y = fe_sub<0>(fe_mul<0>(r, fe_sub<0>(v, res.x)), fe_mul<0>(s1, hhh));
-    res.z = fe_mul<0>(fe_mul<0>(p.z, q.z), h);
-    res = jac_select(fe_is_zero(p.z), q, res);
+    res.x = fe_sub<0>(fe_sub<0>(l4[2], hhh), fe_add<0>(v, v));
+    res.z = l4[3];
+    Fe l5[2];
+    {
+        const Fe a[2] = {r, s1}, b[2] = {fe_sub<0>(v, res.x), hhh};
+        add_level<2, G>(j, a, b, l5);
+    }
+    res.y = fe_sub<0>(l5[0], l5[1]);
+    return res;
+}
+
+// General Jacobian incomplete add; mirrors jpoints.jac_add_incomplete,
+// select order included.
+ZG_HD Jac jac_add_incomplete(const Jac& p, const Jac& q) {
+    Jac res = jac_select(fe_is_zero(p.z), q, jac_add_formulas<1>(p, q, 0));
     return jac_select(fe_is_zero(q.z), p, res);
+}
+
+// The same result as jac_add_incomplete, bit for bit, with the identity
+// cases taken before any product is computed: its last select returns p
+// when q.z = 0, the one before it q when p.z = 0. The threads of a group
+// take the same branch.
+template <int G>
+ZG_HD Jac jac_add_skip(const Jac& p, const Jac& q, int j) {
+    if (fe_is_zero(q.z)) return p;
+    if (fe_is_zero(p.z)) return q;
+    return jac_add_formulas<G>(p, q, j);
 }
 
 ZG_HD Jac jac_load(const uint32_t* x, const uint32_t* y, const uint32_t* z,

@@ -20,19 +20,26 @@ one lane and loops over all rows with its accumulator (two for the weighted
 fold) in registers. Each row costs 16 (or 32) field products for 96 bytes
 read, so both are bound by integer operations; what limits them on this card
 is their width — a few hundred lanes for ``sum_rows`` and 2 * G for
-``weighted_fold`` — and the length of the dependent chain. There is no
-chunking of the row axis, so any K is taken (no multiple-of-8 rule).
+``weighted_fold`` — and the length of the dependent chain. ``sum_rows``
+shortens the chain: a row or an accumulator whose z is 0 is taken by the
+add's selects without a product (most bucket slots are empty), a group of
+four threads shares the products of each lane's add, and one launch folds
+several jobs (:func:`sum_rows_many`: both fold shapes of an MSM batch), the
+longest first. There is no chunking of the row axis, so any K is taken (no
+multiple-of-8 rule).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import kernels
 from .jpoints import jac_add_incomplete, jac_infinity
 
-__all__ = ["sum_rows", "weighted", "sum_rows_plain", "weighted_plain",
-           "sum_rows_words", "weighted_fold_words"]
+__all__ = ["sum_rows", "sum_rows_many", "weighted", "sum_rows_plain",
+           "weighted_plain", "sum_rows_words", "weighted_fold_words"]
 
 
 # ---- plain versions ---------------------------------------------------------------
@@ -70,16 +77,35 @@ def _check_rows(name, comps):
     return l, ct
 
 
+#: folds one ``sum_rows`` launch takes (ZG_FOLD_MAX_JOBS in csrc/fold.cu)
+SUM_ROWS_MAX_JOBS = 4
+
+
 @kernels.register("sum_rows")
-def sum_rows_words(x, y, z):
-    """Launch ``sum_rows`` on int32 word planes [L, 8, C]; returns three
-    [8, C] planes."""
-    l, ct = _check_rows("sum_rows", (x, y, z))
-    out = tuple(torch.empty((8, ct), dtype=torch.int32, device=x.device)
-                for _ in range(3))
+def sum_rows_words(*planes):
+    """Launch ``sum_rows`` once on one or more folds (jobs): int32 word
+    planes x, y, z [L_j, 8, C_j] for each job, in triples. Returns three
+    [8, C_j] planes a job, in the same order."""
+    if not planes or len(planes) % 3 or len(planes) > 3 * SUM_ROWS_MAX_JOBS:
+        raise ValueError("sum_rows: expected 1 to "
+                         f"{SUM_ROWS_MAX_JOBS} triples of word planes")
+    jobs = [planes[i:i + 3] for i in range(0, len(planes), 3)]
+    shapes = [_check_rows("sum_rows", job) for job in jobs]
+    dev = planes[0].device
+    if any(t.device != dev for t in planes):
+        raise ValueError("sum_rows: operands on different devices")
+    out = tuple(torch.empty((8, ct), dtype=torch.int32, device=dev)
+                for _, ct in shapes for _ in range(3))
+    ptrs = []
+    for j, job in enumerate(jobs):
+        ptrs += [t.data_ptr() for t in job] + [t.data_ptr()
+                                               for t in out[3 * j:3 * j + 3]]
+    n = len(jobs)
     code = kernels.lib().zg_sum_rows(
-        x.data_ptr(), y.data_ptr(), z.data_ptr(),
-        *(t.data_ptr() for t in out), l, ct, kernels.current_stream(x.device))
+        (ctypes.c_void_p * (6 * n))(*ptrs),
+        (ctypes.c_long * n)(*(l for l, _ in shapes)),
+        (ctypes.c_long * n)(*(ct for _, ct in shapes)), n,
+        kernels.current_stream(dev))
     kernels.launched(sum_rows_words, code)
     return out
 
@@ -110,11 +136,18 @@ def _rows_to_planes(comp):
 def sum_rows(xs):
     """Fold [L, G, W] jac rows into [G, W] with a left-to-right
     incomplete-add chain."""
-    if not xs[0].is_cuda:
-        return sum_rows_plain(xs)
-    _, g, w = xs[0].shape[:3]
-    out = sum_rows_words(*(_rows_to_planes(c) for c in xs))
-    return tuple(kernels.from_word_planes(o).reshape(g, w, 16) for o in out)
+    return sum_rows_many([xs])[0]
+
+
+def sum_rows_many(folds):
+    """:func:`sum_rows` of each of `folds` (jac rows [L_j, G_j, W_j]); on
+    the card one launch folds them all."""
+    if not folds[0][0].is_cuda:
+        return [sum_rows_plain(xs) for xs in folds]
+    out = sum_rows_words(*(_rows_to_planes(c) for xs in folds for c in xs))
+    return [tuple(kernels.from_word_planes(o).reshape(xs[0].shape[1:3] + (16,))
+                  for o in out[3 * j:3 * j + 3])
+            for j, xs in enumerate(folds)]
 
 
 def weighted(stacked, bias):

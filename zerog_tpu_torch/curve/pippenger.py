@@ -58,7 +58,7 @@ from .jpoints import (
 )
 from .bn254 import G1_GEN, g1_add, g1_double, g1_mul
 from .pscan import flush_scan
-from .pfold import sum_rows, weighted
+from .pfold import sum_rows_many, weighted
 
 __all__ = ["msm", "msm_pippenger_host", "msm_fixed_host",
            "fixed_base_expand", "default_window", "default_fixed_window",
@@ -278,16 +278,12 @@ def _pipeline_device(arrs, r_rows: int, c: int, compact: bool):
     g = int(pb_all.shape[1])
     lo_bits = c // 2
     hi_n, lo_n = 1 << (c - lo_bits), 1 << lo_bits
-    r_hi = sum_rows(tuple(
-        comp.reshape(g, 2, hi_n, lo_n, 16).permute(1, 3, 0, 2, 4)
-        .reshape(2 * lo_n, g, hi_n, 16)
-        for comp in buckets
-    ))
-    c_lo = sum_rows(tuple(
-        comp.reshape(g, 2, hi_n, lo_n, 16).permute(1, 2, 0, 3, 4)
-        .reshape(2 * hi_n, g, lo_n, 16)
-        for comp in buckets
-    ))
+    r_hi, c_lo = sum_rows_many([
+        tuple(comp.reshape(g, 2, hi_n, lo_n, 16).permute(1, 3, 0, 2, 4)
+              .reshape(2 * lo_n, g, hi_n, 16) for comp in buckets),
+        tuple(comp.reshape(g, 2, hi_n, lo_n, 16).permute(1, 2, 0, 3, 4)
+              .reshape(2 * hi_n, g, lo_n, 16) for comp in buckets),
+    ])
 
     _, bias_dev = _pip_bias(sx.device)
     stacked = tuple(

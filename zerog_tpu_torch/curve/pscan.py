@@ -16,16 +16,22 @@ Kernel note — ``flush_scan_affine`` replaces ``_scan_kernel_affine`` and
 ``flush_scan_jac`` replaces ``_scan_kernel_jac`` of
 ``zerog_tpu/curve/pscan.py`` (reached through ``flush_scan_pallas``). There
 the sequential row axis is the grid's inner axis and the carry lives in
-scratch memory between grid steps; on this card blocks run in no order, so
-one thread owns one column and loops over all R rows with the carry in
-registers, writing pieces as it goes. The stream is laid out
-``[R, word, column]`` so a warp's loads and stores coalesce, and the ragged
-edge is masked instead of padding rows to 8 and columns to 1,024. Per row
-and column the affine scan moves 162 bytes for 11 field products and the
-Jacobian scan 193 bytes for 16, so both are bound by integer operations; with
-only a few thousand columns what limits them in practice is the number of
-warps in flight (one warp a block spreads them over the multiprocessors),
-and the chain of dependent products inside each add.
+scratch memory between grid steps; on this card blocks run in no order. The
+stream is laid out ``[R, word, column]`` so a warp's loads and stores
+coalesce, and the ragged edge is masked instead of padding rows to 8 and
+columns to 1,024. The affine scan gives one thread a column, which loops
+over all R rows with the carry in registers: with only a few thousand
+columns it is bounded by the chain of dependent products down a column. The
+Jacobian scan cuts each column at its flush flags into segments, which do
+not depend on each other (a flagged row restarts the carry from its point,
+bit for bit), and gives a group of four threads each slice of 32 rows of a
+column: it folds the segments that start in its slice, past the slice if
+need be, the four threads sharing the products of each add, and takes the
+identity cases of the add (a row or a carry whose z is 0) without computing
+a product — the selects of the incomplete add, taken first, so every limb
+equals the plain scan's. It is bounded by the longest chain of adds one
+segment really needs (on a proof's compaction round, the pieces of one
+bucket, up to ~320), not by R full adds a column.
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ _SIGNATURES = {
     "zg_field_binop": [_P, _P, _P, _L, _I, _I, _P],
     "zg_flush_scan_affine": [_P] * 10 + [_L, _L, _P],
     "zg_flush_scan_jac": [_P] * 10 + [_L, _L, _P],
-    "zg_sum_rows": [_P] * 6 + [_L, _L, _P],
+    "zg_sum_rows": [_P, _P, _P, _I, _P],
     "zg_weighted_fold": [_P] * 9 + [_L, _L, _P],
     "zg_ntt_epilogue": [_P] * 5 + [_L, _L, _I, _P],
     "zg_ntt_twiddle": [_P] * 3 + [_L, _L, _L, _P],
