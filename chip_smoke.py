@@ -22,7 +22,9 @@ launch of the warm WNN proof (``path_kernels`` line: the launches recorded
 during that proof, each timed again, the share of identity rows, the adds
 really required and the longest chain of them, and the launch with the
 longest chain held against the plain version). Their ``bound_ms`` counts
-the required adds only; ``bound_all_rows_ms`` counts an add for every row.
+the bytes and adds that the operands require (x and y of a row are read and
+an add computed only where the row is not the identity);
+``bound_all_rows_ms`` reads every row and counts an add for every row.
 
 It prints one JSON object a line; any phase that fails raises and the run
 exits non-zero. Without a CUDA device it exits non-zero at once. The last
@@ -182,16 +184,37 @@ def _fold_work(z, flags=None):
     key = seg + (r + 1) * torch.arange(c, device=z.device)[None, :]
     adds = (torch.bincount(key[nz], minlength=(r + 1) * c) - 1).clamp(min=0)
     return dict(identity_share=1.0 - float(nz.float().mean()),
+                nonidentity_rows=int(nz.sum()),
                 required_adds=int(adds.sum()), longest_chain=int(adds.max()),
                 all_rows_adds=r * c)
 
 
-def _add_bounds(nbytes, work):
-    """bound_ms from the required adds (16 products of 128 multiply-adds
-    each), and beside it the bound that counts an add for every row."""
+def _add_bounds(nbytes, nbytes_all_rows, work):
+    """bound_ms from the bytes and the adds (16 products of 128 multiply-adds
+    each) that the operands require, and beside it the bound that reads every
+    row and counts an add for every row."""
     b, by = bound(nbytes, work["required_adds"] * MULS_ADD * MADS_PER_MUL)
     return dict(bound_ms=b, bound_by=by, bound_all_rows_ms=bound(
-        nbytes, work["all_rows_adds"] * MULS_ADD * MADS_PER_MUL)[0])
+        nbytes_all_rows, work["all_rows_adds"] * MULS_ADD * MADS_PER_MUL)[0])
+
+
+def _scan_jac_bounds(r, ct, work):
+    """Bounds of one Jacobian scan [R, 8, C]: z and the flag of every row are
+    read, x and y of its non-identity rows only; every piece and the final
+    carries are written."""
+    return _add_bounds(r * ct * (32 + 1 + 96) + 64 * work["nonidentity_rows"]
+                       + 96 * ct,
+                       r * ct * (96 + 1 + 96) + 96 * ct, work)
+
+
+def _sum_rows_bounds(jobs, work):
+    """Bounds of one ``sum_rows`` launch on `jobs` (triples [L, 8, C]): z of
+    every row is read, x and y of its non-identity rows only; one point a
+    lane is written."""
+    lanes = [(j[0].shape[0], j[0].shape[2]) for j in jobs]
+    return _add_bounds(sum(l * c * 32 + 96 * c for l, c in lanes)
+                       + 64 * work["nonidentity_rows"],
+                       sum(l * c * 96 + 96 * c for l, c in lanes), work)
 
 
 def _scan_jac_case(planes, check=True):
@@ -214,7 +237,7 @@ def _scan_jac_case(planes, check=True):
         res["max_abs_err"] = _max_abs_err(got, ref)
         del ref
     res["ms"] = time_ms(lambda: pscan.flush_scan_jac_words(*planes), reps=3)
-    res.update(_add_bounds(r * ct * (3 * 32 + 1 + 3 * 32) + 3 * 32 * ct, res))
+    res.update(_scan_jac_bounds(r, ct, res))
     res["shape"] = f"R={r}, columns={ct}"
     return res, got
 
@@ -224,6 +247,7 @@ def _merge_work(works):
     return dict(identity_share=sum(w["identity_share"] * w["all_rows_adds"]
                                    for w in works)
                 / sum(w["all_rows_adds"] for w in works),
+                nonidentity_rows=sum(w["nonidentity_rows"] for w in works),
                 required_adds=sum(w["required_adds"] for w in works),
                 longest_chain=max(w["longest_chain"] for w in works),
                 all_rows_adds=sum(w["all_rows_adds"] for w in works))
@@ -240,8 +264,6 @@ def _sum_rows_case(jobs, check=True):
     outs = run()
     sync()
     res = _merge_work([_fold_work(job[2]) for job in jobs])
-    nbytes = sum(job[0].shape[0] * job[0].shape[2] * 96 + 96 * job[0].shape[2]
-                 for job in jobs)
     if check:
         res["plain_ms"], res["max_abs_err"] = 0.0, 0
         for job, out in zip(jobs, outs):
@@ -259,7 +281,7 @@ def _sum_rows_case(jobs, check=True):
     if len(jobs) > 1:
         res["ms_by_job"] = [time_ms(lambda: pfold.sum_rows_words(*job))
                             for job in jobs]
-    res.update(_add_bounds(nbytes, res))
+    res.update(_sum_rows_bounds(jobs, res))
     res["shape"] = " + ".join(f"L={j[0].shape[0]} x lanes={j[0].shape[2]}"
                               for j in jobs)
     return res
@@ -267,9 +289,8 @@ def _sum_rows_case(jobs, check=True):
 
 class _MsmRecorder:
     """Records the operands and results of every ``flush_scan_jac`` and
-    ``sum_rows`` launch while it is active. The wrappers count their launches
-    on the module's name, which is the recorder's while it is active, so it
-    carries the kernel's name and hands its count back on exit."""
+    ``sum_rows`` launch while it is active (the wrappers count their launches
+    by kernel name, so the counts are unaffected)."""
 
     def __enter__(self):
         self.scans, self.folds = [], []
@@ -286,16 +307,11 @@ class _MsmRecorder:
             self.folds.append((planes, out))
             return out
 
-        for rec, real in ((rec_scan, scan), (rec_fold, fold)):
-            rec.kernel_name, rec.launches = real.kernel_name, 0
-        self._recs = (rec_scan, rec_fold)
-        pscan.flush_scan_jac_words, pfold.sum_rows_words = self._recs
+        pscan.flush_scan_jac_words, pfold.sum_rows_words = rec_scan, rec_fold
         return self
 
     def __exit__(self, *exc):
         pscan.flush_scan_jac_words, pfold.sum_rows_words = self._saved
-        for rec, real in zip(self._recs, self._saved):
-            real.launches += rec.launches
 
 
 def _point_pool(n_pool):
@@ -977,7 +993,7 @@ def phase_path_kernels(rec):
         res = _fold_work(planes[2], planes[3])
         res["ms"] = time_ms(lambda: pscan.flush_scan_jac_words(*planes), reps=3)
         r, _, ct = planes[0].shape
-        res.update(_add_bounds(r * ct * (3 * 32 + 1 + 3 * 32) + 3 * 32 * ct, res))
+        res.update(_scan_jac_bounds(r, ct, res))
         scans.append(res)
     folds = []
     for planes, _ in rec.folds:

@@ -7,8 +7,12 @@ loop (``flush_scan_jac``: every (row slice, column) pair; ``sum_rows``:
 every lane of every job). That tests the control logic of the kernels — the
 segment split of the Jacobian scan, the identity skips, the job table of
 ``sum_rows`` — on the CPU. The field arithmetic of the host build is the C
-body, not the card's PTX; the card's check is ``chip_smoke.py``. Inputs come
-from a seeded generator; exact arithmetic, tolerance zero.
+body, not the card's PTX; the card's check is ``chip_smoke.py``. The plain
+versions are held on the same inputs against ``zerog_tpu``'s plain XLA paths
+(``_flush_scan(..., pallas=False)``, ``_pipv2_sum_rows``): all cases in one
+call each, every case padded with unflagged (0, 0, 0) rows, which leave a
+carry as it is. Inputs come from a seeded generator; exact arithmetic,
+tolerance zero.
 
 Build by hand (what the fixture does):
 
@@ -25,6 +29,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from zerog_tpu.curve import pippenger as jpp
+
 from zerog_tpu_torch import kernels
 from zerog_tpu_torch.curve import pfold, pscan
 from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
@@ -34,7 +42,7 @@ from zerog_tpu_torch.curve.jpoints import (
 torch.set_num_threads(1)
 
 SLICE = 32          # ZG_SCAN_SLICE in csrc/flush_scan.cu
-MAX_JOBS = pfold.SUM_ROWS_MAX_JOBS
+REF_ROWS = 128      # cases padded to a multiple of the reference's 64-row chunk
 
 
 @pytest.fixture(scope="module")
@@ -132,12 +140,56 @@ SCAN_CASES = ["row0_unflagged", "segment_across_slices", "all_identity_columns",
               "ragged"]
 
 
-@pytest.mark.parametrize("case", SCAN_CASES)
-def test_flush_scan_jac_host_build_matches_plain(host_lib, pool, case):
+def _scan_inputs(pool, case):
+    """(stream (x, y, z) [R, 1, C, 16], flags bool [R, 1, C]) of one case."""
     rng = np.random.default_rng(SCAN_CASES.index(case) + 100)
     r, c, ident, flags = _scan_case(case, rng)
     stream = _stream(pool, rng, r, c, ident)
-    flags_t = torch.from_numpy(flags).reshape(r, 1, c)
+    return stream, torch.from_numpy(flags).reshape(r, 1, c)
+
+
+def _to_jax(t):
+    return jnp.asarray(t.numpy().astype(np.uint32))
+
+
+def _pad_rows(t, rows):
+    """t [R, ...] with zero rows appended up to `rows`."""
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+
+
+def _split_lanes(ref, widths):
+    """Arrays [..., sum(widths), 16] -> one tuple of torch tensors a case."""
+    out, at = [], 0
+    for w in widths:
+        out.append(tuple(torch.from_numpy(np.asarray(a)[..., at:at + w, :]
+                                          .astype(np.int64)) for a in ref))
+        at += w
+    return out
+
+
+@pytest.fixture(scope="module")
+def scan_reference(pool):
+    """zerog_tpu's plain Jacobian flush scan of every case, in one call: the
+    cases side by side as columns, padded to REF_ROWS rows. Returns
+    {case: pieces [R+1, 1, C, 16] (the final carry last)}."""
+    inputs = [_scan_inputs(pool, case) for case in SCAN_CASES]
+    assert max(f.shape[0] for _, f in inputs) <= REF_ROWS
+    stream = tuple(_to_jax(torch.cat([_pad_rows(s[i], REF_ROWS)
+                                      for s, _ in inputs], dim=2))
+                   for i in range(3))
+    flags = jnp.asarray(torch.cat([_pad_rows(f, REF_ROWS) for _, f in inputs],
+                                  dim=2).numpy())
+    ref = jpp._flush_scan(stream, flags, affine=False, pallas=False)
+    per_case = _split_lanes(ref, [f.shape[2] for _, f in inputs])
+    return {case: tuple(torch.cat([a[:f.shape[0]], a[-1:]]) for a in pieces)
+            for case, (_, f), pieces in zip(SCAN_CASES, inputs, per_case)}
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_flush_scan_jac_host_build_matches_plain(host_lib, pool, scan_reference,
+                                                 case):
+    stream, flags_t = _scan_inputs(pool, case)
+    r, _, c = flags_t.shape
     planes = [pscan.stream_to_planes(t) for t in stream + (flags_t,)]
     pieces = [torch.empty_like(planes[0]) for _ in range(3)]
     carry = [torch.empty((8, c), dtype=torch.int32) for _ in range(3)]
@@ -147,8 +199,9 @@ def test_flush_scan_jac_host_build_matches_plain(host_lib, pool, case):
     got = tuple(pscan.pieces_from_planes(torch.cat([p, q[None]], dim=0), 1, c)
                 for p, q in zip(pieces, carry))
     ref = pscan.flush_scan_plain(stream, flags_t, affine=False)
-    for a, b in zip(got, ref):
+    for a, b, j in zip(got, ref, scan_reference[case]):
         assert torch.equal(a, b)
+        assert torch.equal(b, j)
 
 
 def _fold_job(pool, rng, l, c, blank):
@@ -158,14 +211,37 @@ def _fold_job(pool, rng, l, c, blank):
     return _stream(pool, rng, l, c, ident)
 
 
-@pytest.mark.parametrize("shapes", [
+FOLD_CASES = [
     [(40, 5)],                                 # one job, ragged lanes
     [(16, 33), (40, 9)],                       # the shorter fold given first
-    [(8, 3), (24, 4), (1, 2), (17, 6)],        # four jobs, one of one row
-])
-def test_sum_rows_host_build_matches_plain(host_lib, pool, shapes):
-    rng = np.random.default_rng(len(shapes))
-    jobs = [_fold_job(pool, rng, l, c, 0.4) for l, c in shapes]
+    [(1, 2), (17, 6)],                         # a fold of one row
+    [(24, 4), (8, 3)],                         # the longer fold given first
+]
+
+
+def _fold_jobs(pool, shapes):
+    rng = np.random.default_rng(FOLD_CASES.index(shapes))
+    return [_fold_job(pool, rng, l, c, 0.4) for l, c in shapes]
+
+
+@pytest.fixture(scope="module")
+def fold_reference(pool):
+    """zerog_tpu's plain fold of every job of every case, in one call: the
+    jobs side by side as lanes, padded to the longest. Returns one list of
+    results ([1, C, 16] each) a case."""
+    jobs = [job for shapes in FOLD_CASES for job in _fold_jobs(pool, shapes)]
+    rows = max(job[0].shape[0] for job in jobs)
+    xs = tuple(_to_jax(torch.cat([_pad_rows(job[i], rows) for job in jobs],
+                                 dim=2)) for i in range(3))
+    per_job = iter(_split_lanes(jpp._pipv2_sum_rows(xs),
+                                [job[0].shape[2] for job in jobs]))
+    return [[next(per_job) for _ in shapes] for shapes in FOLD_CASES]
+
+
+@pytest.mark.parametrize("shapes", FOLD_CASES)
+def test_sum_rows_host_build_matches_plain(host_lib, pool, fold_reference,
+                                           shapes):
+    jobs = _fold_jobs(pool, shapes)
     planes = [[pfold._rows_to_planes(t) for t in job] for job in jobs]
     outs = [[torch.empty((8, c), dtype=torch.int32) for _ in range(3)]
             for _, c in shapes]
@@ -176,15 +252,9 @@ def test_sum_rows_host_build_matches_plain(host_lib, pool, shapes):
         (ctypes.c_long * n)(*(l for l, _ in shapes)),
         (ctypes.c_long * n)(*(c for _, c in shapes)), n, None)
     assert code == 0
-    for job, out, (_, c) in zip(jobs, outs, shapes):
+    refs = fold_reference[FOLD_CASES.index(shapes)]
+    for job, out, (_, c), jref in zip(jobs, outs, shapes, refs):
         ref = pfold.sum_rows_plain(job)
-        for o, b in zip(out, ref):
+        for o, b, j in zip(out, ref, jref):
             assert torch.equal(kernels.from_word_planes(o).reshape(1, c, 16), b)
-
-
-def test_sum_rows_host_build_refuses_too_many_jobs(host_lib):
-    n = MAX_JOBS + 1
-    code = host_lib.zg_sum_rows((ctypes.c_void_p * (6 * n))(),
-                                (ctypes.c_long * n)(), (ctypes.c_long * n)(),
-                                n, None)
-    assert code != 0
+            assert torch.equal(b, j)

@@ -24,34 +24,100 @@
 #endif
 
 #ifdef __CUDA_ARCH__
-// ---- PTX primitives -----------------------------------------------------------
-// One instruction each. The carry flag set by a .cc instruction is read by the
-// next c-instruction; nothing between two of them touches it.
-#define ZG_MUL_LO(d, a, b) \
-    asm volatile("mul.lo.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define ZG_MUL_HI(d, a, b) \
-    asm volatile("mul.hi.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define ZG_MAD_LO_CC(d, a, b, c) \
-    asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
-#define ZG_MADC_LO_CC(d, a, b, c) \
-    asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
-#define ZG_MADC_HI_CC(d, a, b, c) \
-    asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
-#define ZG_MADC_HI(d, a, b, c) \
-    asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c))
-#define ZG_ADD_CC(d, a, b) \
-    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define ZG_ADDC_CC(d, a, b) \
-    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define ZG_ADDC(d, a, b) \
-    asm volatile("addc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define ZG_SUB_CC(d, a, b) \
-    asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define ZG_SUBC_CC(d, a, b) \
-    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define ZG_SUBC(d, a, b) \
-    asm volatile("subc.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-// ---- end of PTX primitives ------------------------------------------------------
+// ---- PTX carry chains ---------------------------------------------------------
+// Each carry chain is one asm statement, so that the compiler can put nothing
+// between the instruction that sets the carry flag and the one that reads it.
+// Accumulators are read-write operands ("+r").
+
+// d += b over 8 words; the carry out of word 7 is dropped.
+__device__ __forceinline__ void zg_add8(uint32_t d[8], const uint32_t b[8]) {
+    asm("add.cc.u32 %0, %0, %8;\n\t"
+        "addc.cc.u32 %1, %1, %9;\n\t"
+        "addc.cc.u32 %2, %2, %10;\n\t"
+        "addc.cc.u32 %3, %3, %11;\n\t"
+        "addc.cc.u32 %4, %4, %12;\n\t"
+        "addc.cc.u32 %5, %5, %13;\n\t"
+        "addc.cc.u32 %6, %6, %14;\n\t"
+        "addc.u32 %7, %7, %15;"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7])
+        : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]),
+          "r"(b[7]));
+}
+
+// d -= b over 8 words; returns all ones if it borrowed (d < b), else 0.
+__device__ __forceinline__ uint32_t zg_sub8(uint32_t d[8], const uint32_t b[8]) {
+    uint32_t mask;
+    asm("sub.cc.u32 %0, %0, %9;\n\t"
+        "subc.cc.u32 %1, %1, %10;\n\t"
+        "subc.cc.u32 %2, %2, %11;\n\t"
+        "subc.cc.u32 %3, %3, %12;\n\t"
+        "subc.cc.u32 %4, %4, %13;\n\t"
+        "subc.cc.u32 %5, %5, %14;\n\t"
+        "subc.cc.u32 %6, %6, %15;\n\t"
+        "subc.cc.u32 %7, %7, %16;\n\t"
+        "subc.u32 %8, %17, %17;"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "=r"(mask)
+        : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]),
+          "r"(b[7]), "r"(0u));
+    return mask;
+}
+
+// acc += m (a0 + a1 2^64 + a2 2^128 + a3 2^192), the product words of a_k
+// going to acc[2k] (low) and acc[2k+1] (high); the carry out of acc[7] is
+// added to `top`.
+__device__ __forceinline__ void zg_mad4_top(uint32_t acc[8], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint32_t m,
+                                            uint32_t& top) {
+    asm("mad.lo.cc.u32 %0, %9, %13, %0;\n\t"
+        "madc.hi.cc.u32 %1, %9, %13, %1;\n\t"
+        "madc.lo.cc.u32 %2, %10, %13, %2;\n\t"
+        "madc.hi.cc.u32 %3, %10, %13, %3;\n\t"
+        "madc.lo.cc.u32 %4, %11, %13, %4;\n\t"
+        "madc.hi.cc.u32 %5, %11, %13, %5;\n\t"
+        "madc.lo.cc.u32 %6, %12, %13, %6;\n\t"
+        "madc.hi.cc.u32 %7, %12, %13, %7;\n\t"
+        "addc.u32 %8, %8, %14;"
+        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]),
+          "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7]), "+r"(top)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(m), "r"(0u));
+}
+
+// As zg_mad4_top, with no carry out of acc[7] (the caller knows it is 0).
+__device__ __forceinline__ void zg_mad4(uint32_t acc[8], uint32_t a0, uint32_t a1,
+                                        uint32_t a2, uint32_t a3, uint32_t m) {
+    asm("mad.lo.cc.u32 %0, %8, %12, %0;\n\t"
+        "madc.hi.cc.u32 %1, %8, %12, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+        "madc.lo.cc.u32 %4, %10, %12, %4;\n\t"
+        "madc.hi.cc.u32 %5, %10, %12, %5;\n\t"
+        "madc.lo.cc.u32 %6, %11, %12, %6;\n\t"
+        "madc.hi.u32 %7, %11, %12, %7;"
+        : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]),
+          "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(m));
+}
+
+// As zg_mad4, after x += y, whose carry enters acc[0].
+__device__ __forceinline__ void zg_add_mad4(uint32_t& x, uint32_t y, uint32_t acc[8],
+                                            uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint32_t m) {
+    asm("add.cc.u32 %0, %0, %9;\n\t"
+        "madc.lo.cc.u32 %1, %10, %14, %1;\n\t"
+        "madc.hi.cc.u32 %2, %10, %14, %2;\n\t"
+        "madc.lo.cc.u32 %3, %11, %14, %3;\n\t"
+        "madc.hi.cc.u32 %4, %11, %14, %4;\n\t"
+        "madc.lo.cc.u32 %5, %12, %14, %5;\n\t"
+        "madc.hi.cc.u32 %6, %12, %14, %6;\n\t"
+        "madc.lo.cc.u32 %7, %13, %14, %7;\n\t"
+        "madc.hi.u32 %8, %13, %14, %8;"
+        : "+r"(x), "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]),
+          "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7])
+        : "r"(y), "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(m));
+}
+// ---- end of PTX carry chains ----------------------------------------------------
 #endif
 
 #define ZG_NW 8  // 32-bit words per element
@@ -160,11 +226,13 @@ template <int F>
 ZG_HD Fe fe_cond_sub_p(const Fe& r) {
     Fe d;
 #ifdef __CUDA_ARCH__
-    uint32_t borrow;
-    ZG_SUB_CC(d.w[0], r.w[0], zg_p<F>(0));
+    uint32_t p[ZG_NW];
 #pragma unroll
-    for (int i = 1; i < ZG_NW; i++) ZG_SUBC_CC(d.w[i], r.w[i], zg_p<F>(i));
-    ZG_SUBC(borrow, 0u, 0u);  // all ones where r < p
+    for (int i = 0; i < ZG_NW; i++) {
+        d.w[i] = r.w[i];
+        p[i] = zg_p<F>(i);
+    }
+    const uint32_t borrow = zg_sub8(d.w, p);  // all ones where r < p
 #pragma unroll
     for (int i = 0; i < ZG_NW; i++) d.w[i] = (r.w[i] & borrow) | (d.w[i] & ~borrow);
     return d;
@@ -185,10 +253,8 @@ ZG_HD Fe fe_add(const Fe& a, const Fe& b) {
     Fe s;
     // a + b < 2p < 2^255: no carry out of the top word
 #ifdef __CUDA_ARCH__
-    ZG_ADD_CC(s.w[0], a.w[0], b.w[0]);
-#pragma unroll
-    for (int i = 1; i < ZG_NW - 1; i++) ZG_ADDC_CC(s.w[i], a.w[i], b.w[i]);
-    ZG_ADDC(s.w[ZG_NW - 1], a.w[ZG_NW - 1], b.w[ZG_NW - 1]);
+    s = a;
+    zg_add8(s.w, b.w);
 #else
     uint64_t carry = 0;
 #pragma unroll
@@ -207,15 +273,12 @@ ZG_HD Fe fe_sub(const Fe& a, const Fe& b) {
 #ifdef __CUDA_ARCH__
     // a - b, then p & (all ones where a < b) added back; the wrap past 2^256
     // cancels the borrow
-    uint32_t mask;
-    ZG_SUB_CC(d.w[0], a.w[0], b.w[0]);
+    d = a;
+    const uint32_t mask = zg_sub8(d.w, b.w);
+    uint32_t pm[ZG_NW];
 #pragma unroll
-    for (int i = 1; i < ZG_NW; i++) ZG_SUBC_CC(d.w[i], a.w[i], b.w[i]);
-    ZG_SUBC(mask, 0u, 0u);
-    ZG_ADD_CC(d.w[0], d.w[0], zg_p<F>(0) & mask);
-#pragma unroll
-    for (int i = 1; i < ZG_NW - 1; i++) ZG_ADDC_CC(d.w[i], d.w[i], zg_p<F>(i) & mask);
-    ZG_ADDC(d.w[ZG_NW - 1], d.w[ZG_NW - 1], zg_p<F>(ZG_NW - 1) & mask);
+    for (int i = 0; i < ZG_NW; i++) pm[i] = zg_p<F>(i) & mask;
+    zg_add8(d.w, pm);
     return d;
 #else
     uint64_t borrow = 0;
@@ -247,23 +310,8 @@ ZG_HD Fe fe_sub(const Fe& a, const Fe& b) {
 template <int F>
 __device__ __forceinline__ void fe_mul_reduce(uint32_t e[ZG_NW], uint32_t o[ZG_NW]) {
     const uint32_t m = e[0] * zg_n0<F>();
-    ZG_MAD_LO_CC(o[0], zg_p<F>(1), m, o[0]);
-    ZG_MADC_HI_CC(o[1], zg_p<F>(1), m, o[1]);
-#pragma unroll
-    for (int j = 2; j < ZG_NW - 2; j += 2) {
-        ZG_MADC_LO_CC(o[j], zg_p<F>(j + 1), m, o[j]);
-        ZG_MADC_HI_CC(o[j + 1], zg_p<F>(j + 1), m, o[j + 1]);
-    }
-    ZG_MADC_LO_CC(o[ZG_NW - 2], zg_p<F>(ZG_NW - 1), m, o[ZG_NW - 2]);
-    ZG_MADC_HI(o[ZG_NW - 1], zg_p<F>(ZG_NW - 1), m, o[ZG_NW - 1]);
-    ZG_MAD_LO_CC(e[0], zg_p<F>(0), m, e[0]);
-    ZG_MADC_HI_CC(e[1], zg_p<F>(0), m, e[1]);
-#pragma unroll
-    for (int j = 2; j < ZG_NW; j += 2) {
-        ZG_MADC_LO_CC(e[j], zg_p<F>(j), m, e[j]);
-        ZG_MADC_HI_CC(e[j + 1], zg_p<F>(j), m, e[j + 1]);
-    }
-    ZG_ADDC(o[ZG_NW - 1], o[ZG_NW - 1], 0u);
+    zg_mad4(o, zg_p<F>(1), zg_p<F>(3), zg_p<F>(5), zg_p<F>(7), m);
+    zg_mad4_top(e, zg_p<F>(0), zg_p<F>(2), zg_p<F>(4), zg_p<F>(6), m, o[ZG_NW - 1]);
 }
 #endif
 
@@ -278,35 +326,27 @@ ZG_HD Fe fe_mul(const Fe& a, const Fe& b) {
     uint32_t e[ZG_NW], o[ZG_NW];
 #pragma unroll
     for (int j = 0; j < ZG_NW; j += 2) {
-        ZG_MUL_LO(e[j], a.w[j], b.w[0]);
-        ZG_MUL_HI(e[j + 1], a.w[j], b.w[0]);
-        ZG_MUL_LO(o[j], a.w[j + 1], b.w[0]);
-        ZG_MUL_HI(o[j + 1], a.w[j + 1], b.w[0]);
+        e[j] = a.w[j] * b.w[0];
+        e[j + 1] = __umulhi(a.w[j], b.w[0]);
+        o[j] = a.w[j + 1] * b.w[0];
+        o[j + 1] = __umulhi(a.w[j + 1], b.w[0]);
     }
     fe_mul_reduce<F>(e, o);
 #pragma unroll
     for (int i = 1; i < ZG_NW; i++) {
         // T / 2^32 (e[0] is 0): the next e is o + e[1] at word 0, its carry
         // into word 1 taken up by the first step of the next o, which is
-        // e[2..7] at words 1..6 plus the products of a's odd words
+        // e[2..7] at words 1..6 plus the products of a's odd words; the next
+        // e is o[1..7] at words 1..7 plus those of its even words
         const uint32_t bi = b.w[i];
         uint32_t ne[ZG_NW], no[ZG_NW];
-        ZG_ADD_CC(ne[0], o[0], e[1]);
 #pragma unroll
-        for (int j = 0; j < ZG_NW - 2; j += 2) {
-            ZG_MADC_LO_CC(no[j], a.w[j + 1], bi, e[j + 2]);
-            ZG_MADC_HI_CC(no[j + 1], a.w[j + 1], bi, e[j + 3]);
-        }
-        ZG_MADC_LO_CC(no[ZG_NW - 2], a.w[ZG_NW - 1], bi, 0u);
-        ZG_MADC_HI(no[ZG_NW - 1], a.w[ZG_NW - 1], bi, 0u);
-        ZG_MAD_LO_CC(ne[0], a.w[0], bi, ne[0]);
-        ZG_MADC_HI_CC(ne[1], a.w[0], bi, o[1]);
+        for (int j = 0; j < ZG_NW; j++) ne[j] = o[j];
 #pragma unroll
-        for (int j = 2; j < ZG_NW; j += 2) {
-            ZG_MADC_LO_CC(ne[j], a.w[j], bi, o[j]);
-            ZG_MADC_HI_CC(ne[j + 1], a.w[j], bi, o[j + 1]);
-        }
-        ZG_ADDC(no[ZG_NW - 1], no[ZG_NW - 1], 0u);
+        for (int j = 0; j < ZG_NW - 2; j++) no[j] = e[j + 2];
+        no[ZG_NW - 2] = no[ZG_NW - 1] = 0u;
+        zg_add_mad4(ne[0], e[1], no, a.w[1], a.w[3], a.w[5], a.w[7], bi);
+        zg_mad4_top(ne, a.w[0], a.w[2], a.w[4], a.w[6], bi, no[ZG_NW - 1]);
         fe_mul_reduce<F>(ne, no);
 #pragma unroll
         for (int j = 0; j < ZG_NW; j++) {
@@ -316,10 +356,13 @@ ZG_HD Fe fe_mul(const Fe& a, const Fe& b) {
     }
     // T / 2^32 < 2p < 2^255 in eight words
     Fe r;
-    ZG_ADD_CC(r.w[0], o[0], e[1]);
+    uint32_t hi[ZG_NW];
 #pragma unroll
-    for (int j = 1; j < ZG_NW - 1; j++) ZG_ADDC_CC(r.w[j], o[j], e[j + 1]);
-    ZG_ADDC(r.w[ZG_NW - 1], o[ZG_NW - 1], 0u);
+    for (int j = 0; j < ZG_NW; j++) r.w[j] = o[j];
+#pragma unroll
+    for (int j = 0; j < ZG_NW - 1; j++) hi[j] = e[j + 1];
+    hi[ZG_NW - 1] = 0u;
+    zg_add8(r.w, hi);
     return fe_cond_sub_p<F>(r);
 #else
     uint32_t t[ZG_NW + 2];

@@ -12,7 +12,7 @@
 // Any number of rows is taken: there is no chunking, so no padded row ever
 // repeats the a2 += a1 step.
 //
-// sum_rows takes several folds (jobs) in one launch, the longest first, so
+// sum_rows takes one or two folds (jobs) in one launch, the longer first, so
 // that the two fold shapes of an MSM batch run side by side; a group of
 // ZG_FOLD_GROUP threads shares each lane's adds, one product of a level each
 // (jac_add_formulas), and one warp a block spreads the groups over the
@@ -47,8 +47,9 @@ ZG_HD void sum_rows_lane(long col, int j, const uint32_t* x, const uint32_t* y,
 }
 
 // One fold of a sum_rows launch: its planes, rows and lanes, and the first
-// block of the launch that works on it.
-#define ZG_FOLD_MAX_JOBS 4
+// block of the launch that works on it. A launch takes the two fold shapes of
+// an MSM batch (pippenger.py) or one fold.
+#define ZG_FOLD_MAX_JOBS 2
 struct FoldJob {
     const uint32_t *x, *y, *z;
     uint32_t *ox, *oy, *oz;
@@ -102,20 +103,17 @@ __global__ void weighted_fold_kernel(const uint32_t* x, const uint32_t* y,
 
 // planes: for each of the njobs folds, its x, y, z rows and its ox, oy, oz
 // results (six pointers a job); rows[j], ncols[j] its shape. Returns 1
-// (cudaErrorInvalidValue) for more than ZG_FOLD_MAX_JOBS jobs.
+// (cudaErrorInvalidValue) unless there are one or two jobs.
 extern "C" int zg_sum_rows(const void* const* planes, const long* rows,
                            const long* ncols, int njobs, void* stream) {
-    if (njobs < 0 || njobs > ZG_FOLD_MAX_JOBS) return 1;
+    if (njobs < 1 || njobs > ZG_FOLD_MAX_JOBS) return 1;
     FoldJobs jobs;
     jobs.n = 0;
-    // the longest folds first, so that their blocks start first
-    bool taken[ZG_FOLD_MAX_JOBS] = {false, false, false, false};
     long blocks = 0;
+    // the longer fold first, so that its blocks start first
+    const int first = (njobs == 2 && rows[1] > rows[0]) ? 1 : 0;
     for (int k = 0; k < njobs; k++) {
-        int pick = -1;
-        for (int j = 0; j < njobs; j++)
-            if (!taken[j] && (pick < 0 || rows[j] > rows[pick])) pick = j;
-        taken[pick] = true;
+        const int pick = k == 0 ? first : 1 - first;
         if (ncols[pick] <= 0) continue;
         FoldJob& jb = jobs.job[jobs.n++];
         const void* const* p = planes + 6 * pick;

@@ -24,9 +24,9 @@ is their width — a few hundred lanes for ``sum_rows`` and 2 * G for
 shortens the chain: a row or an accumulator whose z is 0 is taken by the
 add's selects without a product (most bucket slots are empty), a group of
 four threads shares the products of each lane's add, and one launch folds
-several jobs (:func:`sum_rows_many`: both fold shapes of an MSM batch), the
-longest first. There is no chunking of the row axis, so any K is taken (no
-multiple-of-8 rule).
+both fold shapes of an MSM batch (:func:`sum_rows_many`), the longer first.
+There is no chunking of the row axis, so any K is taken (no multiple-of-8
+rule).
 """
 
 from __future__ import annotations
@@ -77,18 +77,13 @@ def _check_rows(name, comps):
     return l, ct
 
 
-#: folds one ``sum_rows`` launch takes (ZG_FOLD_MAX_JOBS in csrc/fold.cu)
-SUM_ROWS_MAX_JOBS = 4
-
-
 @kernels.register("sum_rows")
 def sum_rows_words(*planes):
-    """Launch ``sum_rows`` once on one or more folds (jobs): int32 word
+    """Launch ``sum_rows`` once on one or two folds (jobs): int32 word
     planes x, y, z [L_j, 8, C_j] for each job, in triples. Returns three
     [8, C_j] planes a job, in the same order."""
-    if not planes or len(planes) % 3 or len(planes) > 3 * SUM_ROWS_MAX_JOBS:
-        raise ValueError("sum_rows: expected 1 to "
-                         f"{SUM_ROWS_MAX_JOBS} triples of word planes")
+    if len(planes) not in (3, 6):
+        raise ValueError("sum_rows: expected one or two triples of word planes")
     jobs = [planes[i:i + 3] for i in range(0, len(planes), 3)]
     shapes = [_check_rows("sum_rows", job) for job in jobs]
     dev = planes[0].device
@@ -106,7 +101,7 @@ def sum_rows_words(*planes):
         (ctypes.c_long * n)(*(l for l, _ in shapes)),
         (ctypes.c_long * n)(*(ct for _, ct in shapes)), n,
         kernels.current_stream(dev))
-    kernels.launched(sum_rows_words, code)
+    kernels.launched("sum_rows", code)
     return out
 
 
@@ -125,7 +120,7 @@ def weighted_fold_words(x, y, z, bx, by, bz):
         x.data_ptr(), y.data_ptr(), z.data_ptr(),
         bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
         *(t.data_ptr() for t in out), k, ct, kernels.current_stream(x.device))
-    kernels.launched(weighted_fold_words, code)
+    kernels.launched("weighted_fold", code)
     return out
 
 
@@ -140,8 +135,8 @@ def sum_rows(xs):
 
 
 def sum_rows_many(folds):
-    """:func:`sum_rows` of each of `folds` (jac rows [L_j, G_j, W_j]); on
-    the card one launch folds them all."""
+    """:func:`sum_rows` of each of `folds` (one or two, jac rows
+    [L_j, G_j, W_j]); on the card one launch folds them all."""
     if not folds[0][0].is_cuda:
         return [sum_rows_plain(xs) for xs in folds]
     out = sum_rows_words(*(_rows_to_planes(c) for xs in folds for c in xs))

@@ -93,11 +93,10 @@ def pieces_from_planes(planes, g: int, c: int):
 
 # ---- kernel wrappers --------------------------------------------------------------
 
-def _scan_launch(wrapper, symbol: str, sx, sy, third, third_dtype, flags):
+def _scan_launch(name: str, sx, sy, third, third_dtype, flags):
     if not isinstance(sx, torch.Tensor) or sx.dim() != 3:
-        raise ValueError(f"{wrapper.kernel_name}: expected word planes [R, 8, C]")
+        raise ValueError(f"{name}: expected word planes [R, 8, C]")
     r, _, ct = sx.shape
-    name = wrapper.kernel_name
     kernels.check_planes(f"{name} x", sx, (r, 8, ct))
     kernels.check_planes(f"{name} y", sy, (r, 8, ct))
     if third_dtype == torch.uint8:
@@ -111,11 +110,11 @@ def _scan_launch(wrapper, symbol: str, sx, sy, third, third_dtype, flags):
     pieces = tuple(torch.empty_like(sx) for _ in range(3))
     carry = tuple(torch.empty((8, ct), dtype=torch.int32, device=sx.device)
                   for _ in range(3))
-    code = getattr(kernels.lib(), symbol)(
+    code = getattr(kernels.lib(), "zg_" + name)(
         sx.data_ptr(), sy.data_ptr(), third.data_ptr(), flags.data_ptr(),
         *(t.data_ptr() for t in pieces), *(t.data_ptr() for t in carry),
         r, ct, kernels.current_stream(sx.device))
-    kernels.launched(wrapper, code)
+    kernels.launched(name, code)
     return pieces + carry
 
 
@@ -124,8 +123,7 @@ def flush_scan_affine_words(sx, sy, valid, flags):
     """Launch the affine flush scan. sx, sy: int32 word planes [R, 8, C];
     valid, flags: uint8 [R, C] (one byte per entry, nonzero = set). Returns
     (px, py, pz, cx, cy, cz): pieces [R, 8, C] and final carries [8, C]."""
-    return _scan_launch(flush_scan_affine_words, "zg_flush_scan_affine",
-                        sx, sy, valid, torch.uint8, flags)
+    return _scan_launch("flush_scan_affine", sx, sy, valid, torch.uint8, flags)
 
 
 @kernels.register("flush_scan_jac")
@@ -133,8 +131,7 @@ def flush_scan_jac_words(sx, sy, sz, flags):
     """Launch the Jacobian flush scan. sx, sy, sz: int32 word planes
     [R, 8, C]; flags: uint8 [R, C]. Returns pieces and final carries like
     :func:`flush_scan_affine_words`."""
-    return _scan_launch(flush_scan_jac_words, "zg_flush_scan_jac",
-                        sx, sy, sz, torch.int32, flags)
+    return _scan_launch("flush_scan_jac", sx, sy, sz, torch.int32, flags)
 
 
 def flush_scan(stream, flags, affine: bool):

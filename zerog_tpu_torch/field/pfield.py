@@ -81,7 +81,7 @@ def field_binop_words(op: str, params: FieldParams, a, b):
         a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
         0 if params.name == "Fq" else 1, _OPS[op],
         kernels.current_stream(a.device))
-    kernels.launched(field_binop_words, code)
+    kernels.launched("field_binop", code)
     return out
 
 

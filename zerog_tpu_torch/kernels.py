@@ -187,12 +187,12 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def launched(fn, code: int) -> None:
-    """Count one launch of `fn`'s kernel; raise if the launch was refused."""
+def launched(name: str, code: int) -> None:
+    """Count one launch of kernel `name` on its registered wrapper; raise if
+    the launch was refused."""
     if code != 0:
-        raise RuntimeError(
-            f"{fn.kernel_name}: kernel launch failed (CUDA error {code})")
-    fn.launches += 1
+        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {code})")
+    _WRAPPERS[name].launches += 1
 
 
 # ---- word planes -----------------------------------------------------------------

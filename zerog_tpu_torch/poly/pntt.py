@@ -295,7 +295,7 @@ def epilogue_words(acc, colsum, rowc, tw=None, out_bytes: bool = True):
         acc.data_ptr(), colsum.data_ptr(), rowc.data_ptr(),
         None if tw is None else tw.data_ptr(), out.data_ptr(), t, g,
         int(bool(out_bytes)), kernels.current_stream(acc.device))
-    kernels.launched(epilogue_words, code)
+    kernels.launched("ntt_epilogue", code)
     return out
 
 
@@ -334,7 +334,7 @@ def twiddle_words(xb, twc):
     code = kernels.lib().zg_ntt_twiddle(
         xb.data_ptr(), twc.data_ptr(), out.data_ptr(), s, r, lanes // r,
         kernels.current_stream(xb.device))
-    kernels.launched(twiddle_words, code)
+    kernels.launched("ntt_twiddle", code)
     return out
 
 
