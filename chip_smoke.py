@@ -26,6 +26,14 @@ the bytes and adds that the operands require (x and y of a row are read and
 an add computed only where the row is not the identity);
 ``bound_all_rows_ms`` reads every row and counts an add for every row.
 
+The ``bench`` phase drives the two measuring kernels through their
+benchmarks' entry points (``zerog_tpu_torch.bench``): ``field_chain``, 16
+chained Fr products an element at n = 2^18, beside 16 launches of
+``field_binop``; the four ``scan_bisect`` bodies at R = 1,024 rows and
+2,560 and 20,480 columns, beside ``flush_scan_affine`` at R x 2,560 (where
+kernel 2's time goes). Their rows in the ``kernels`` line count the
+launches of that path (``launches_path``); no proof path runs them.
+
 It prints one JSON object a line; any phase that fails raises and the run
 exits non-zero. Without a CUDA device it exits non-zero at once. The last
 line is ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
@@ -38,7 +46,6 @@ import argparse
 import hashlib
 import json
 import random
-import statistics
 import subprocess
 import sys
 import time
@@ -47,6 +54,8 @@ import numpy as np
 import torch
 
 from zerog_tpu_torch import kernels
+from zerog_tpu_torch.bench import MADS_PER_MUL, bound, gpu_line, time_ms
+from zerog_tpu_torch.bench import field_chain, scan_bisect
 from zerog_tpu_torch.field import FR, FQ, to_limbs, from_limbs, to_device
 from zerog_tpu_torch.field import pfield
 from zerog_tpu_torch.curve import Srs, pscan, pfold, pippenger
@@ -61,16 +70,6 @@ DEV = torch.device("cuda", 0)
 K = 14
 SEED = 20240914
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
-# memory; 67 TFLOP/s float32 outside the tensor cores = 33.5e12 fused
-# multiply-adds a second, and the 32-bit integer multiply-add units are half
-# as many as the float32 ones: 132 SMs x 64 lanes x 1.98 GHz = 16.7e12 a
-# second.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_MAD_PER_S = 16.75e12
-# 32-bit multiply-adds of one Montgomery product of 8-word operands: 64 for
-# the product, 64 for the reduction. Adds, subs and selects are left out.
-MADS_PER_MUL = 128
 MULS_MADD = 11      # mixed add, 8M + 3S
 MULS_ADD = 16       # general incomplete add, 12M + 4S
 
@@ -89,10 +88,23 @@ KERNEL_META = {
                      "zerog_tpu/poly/pntt.py:419"),
     "ntt_twiddle": ("zerog_tpu_torch/csrc/ntt.cu",
                     "zerog_tpu/poly/pntt.py:562"),
+    "field_chain": ("zerog_tpu_torch/csrc/bench.cu",
+                    "scripts/bench_pallas_field.py:107"),
+    "scan_bisect_trivial": ("zerog_tpu_torch/csrc/bench.cu",
+                            "scripts/bench_pscan_bisect.py:73"),
+    "scan_bisect_mul_smem": ("zerog_tpu_torch/csrc/bench.cu",
+                             "scripts/bench_pscan_bisect.py:87"),
+    "scan_bisect_mul_reg": ("zerog_tpu_torch/csrc/bench.cu",
+                            "scripts/bench_pscan_bisect.py:104"),
+    "scan_bisect_madd": ("zerog_tpu_torch/csrc/bench.cu",
+                         "scripts/bench_pscan_bisect.py:121"),
 }
 MSM_KERNELS = ("flush_scan_affine", "flush_scan_jac", "sum_rows",
                "weighted_fold")
 NTT_KERNELS = ("ntt_epilogue", "ntt_twiddle")
+# the measuring kernels: the path of the two benchmarks' entry points
+BENCH_KERNELS = ("field_chain",) + tuple(f"scan_bisect_{b}" for b in scan_bisect.BODIES)
+CHAIN_LOG_N = 18    # n of the field chain, bench_pallas_field.py's default
 # multiply-adds of one REDC of a 9-word value (8 words x 8 steps)
 MADS_PER_REDC = 64
 # the WNN model of the smoke run: MNIST-Tiny's shape, registered at k = 14
@@ -108,42 +120,13 @@ def sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn, reps=5, warm=1):
-    """Median milliseconds of `fn` by CUDA events, after a warm-up."""
-    for _ in range(warm):
-        fn()
-    sync()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        sync()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
-
-
-def bound(nbytes, mads):
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = mads / PEAK_INT32_MAD_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def nvidia_smi_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
 # ---- phase 1: env ---------------------------------------------------------------
 
 def phase_env():
     nvcc = subprocess.run([kernels._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     release = [l for l in nvcc.splitlines() if "release" in l]
-    info = dict(phase="env", gpu=nvidia_smi_line(),
+    info = dict(phase="env", gpu=gpu_line(),
                 torch=torch.__version__, cuda=torch.version.cuda,
                 nvcc=release[0].strip() if release else nvcc.strip())
     emit(info)
@@ -493,6 +476,40 @@ def phase_kernels():
     emit(dict(phase="kernel_check", equal_to_plain=True, tolerance=0,
               kernels=res, check_launches=kernels.launch_counts()))
     return res
+
+
+# ---- phase 3b: bench — the measuring kernels 8 and 9 -----------------------------
+
+def phase_bench():
+    """The two benchmarks' entry points (``field_chain.run``,
+    ``scan_bisect.run``) with the launch counts set to 0 before and read
+    after: the path of kernels 8 and 9. Then each kernel is held against its
+    plain version (``check``): ``field_chain`` at n = 2^18 limb for limb and
+    its first 64 elements against Python ints; the bisection bodies at
+    R = 1,024, C = 2,560 (``madd`` over its first 128 rows as their own
+    stream), the wide run (C = 20,480) against the narrow one on the columns
+    they share. ``flush_scan_affine`` is timed on the same rows in the same
+    run. Returns ({name: result}, launches)."""
+    kernels.reset_launch_counts()
+    chain, chain_outs = field_chain.run(FR, CHAIN_LOG_N, DEV)
+    chain["product_latency_us"] = field_chain.product_latency_us(FR, DEV)
+    bisect, (narrow_in, bisect_outs) = scan_bisect.run(DEV)
+    launches = kernels.launch_counts()
+    for name in BENCH_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 "bench path")
+    chain["max_abs_err"] = field_chain.check(FR, CHAIN_LOG_N, chain_outs)
+    res = {"field_chain": chain}
+    checked = scan_bisect.check(narrow_in, bisect_outs)
+    for body in scan_bisect.BODIES:
+        res[f"scan_bisect_{body}"] = {**bisect["bodies"][body], **checked[body]}
+    del chain_outs, narrow_in, bisect_outs
+    emit(dict(phase="bench", equal_to_plain=True, tolerance=0,
+              product_latency_us_fq=bisect["product_latency_us"],
+              flush_scan_affine=bisect["bodies"]["flush_scan_affine"],
+              kernels=res, launches=launches))
+    return res, launches
 
 
 # ---- phase 4: the int8-DFT NTT engine ---------------------------------------------
@@ -1043,7 +1060,8 @@ def phase_path_kernels(rec):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="env,build,kernels,ntt,commit,prove,wnn")
+    ap.add_argument("--phases",
+                    default="env,build,kernels,bench,ntt,commit,prove,wnn")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1056,11 +1074,14 @@ def main():
     if "build" in phases:
         phase_build()
     kres = phase_kernels() if "kernels" in phases else {}
+    by_path = {}
+    if "bench" in phases:
+        bench_res, by_path["bench"] = phase_bench()
+        kres.update(bench_res)
     if "ntt" in phases:
         cs = ConstraintSystem()
         tiny_model().get_circuit(np.zeros((28, 28), np.uint8)).configure(cs)
         kres.update(phase_ntt(cs.num_advice))
-    by_path = {}
     path_res = {}
     if {"commit", "prove", "wnn"} & set(phases):
         srs = phase_commit()
@@ -1075,16 +1096,24 @@ def main():
     rows = []
     for name, (source, replaces) in KERNEL_META.items():
         r = kres.get(name, {})
+        bench = name in BENCH_KERNELS
         row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=main_path.get(name, 0),
+            launches=(by_path.get("bench", {}) if bench else main_path).get(name, 0),
             launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
             max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
             plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
             bound_by=r.get("bound_by"), library_ms=None,
-            shape=r.get("shape"), on_main_path=name != "field_binop")
+            shape=r.get("shape"),
+            on_main_path=name != "field_binop" and not bench)
+        if bench:
+            row["launches_path"] = "bench"
         for key in ("dense", "us_per_add", "us_per_product",
-                    "bound_all_rows_ms", "required_adds", "identity_share"):
+                    "bound_all_rows_ms", "required_adds", "identity_share",
+                    "ms_wide", "wide_shape", "wide_over_narrow", "bound_wide_ms",
+                    "chain_floor_ms", "carried_floor_ms", "plain_rows",
+                    "chained_ms", "chained_bound_ms", "ns_per_product",
+                    "product_latency_us", "mproducts_per_s"):
             if key in r:
                 row[key] = r[key]
         if name in path_res:
@@ -1099,7 +1128,7 @@ def main():
         rows.append(row)
     emit(dict(kernels=rows))
     emit(dict(phase="total", seconds=round(time.time() - t_start, 1)))
-    print(nvidia_smi_line(), flush=True)
+    print(gpu_line(), flush=True)
     emit(dict(ok=True, device=dict(platform="gpu",
                                    kind=torch.cuda.get_device_name(0),
                                    count=torch.cuda.device_count())))

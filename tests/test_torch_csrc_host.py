@@ -6,7 +6,9 @@ C function then runs the kernel's per-thread function over all threads in a
 loop (``flush_scan_jac``: every (row slice, column) pair; ``sum_rows``:
 every lane of every job). That tests the control logic of the kernels — the
 segment split of the Jacobian scan, the identity skips, the job table of
-``sum_rows`` — on the CPU. The field arithmetic of the host build is the C
+``sum_rows`` — on the CPU, and the measuring kernels of ``csrc/bench.cu``
+(``field_chain``, the four ``scan_bisect`` bodies) against their plain
+versions. The field arithmetic of the host build is the C
 body, not the card's PTX; the card's check is ``chip_smoke.py``. The plain
 versions are held on the same inputs against ``zerog_tpu``'s plain XLA paths
 (``_flush_scan(..., pallas=False)``, ``_pipv2_sum_rows``): all cases in one
@@ -34,10 +36,12 @@ import jax.numpy as jnp
 from zerog_tpu.curve import pippenger as jpp
 
 from zerog_tpu_torch import kernels
+from zerog_tpu_torch.bench import field_chain, scan_bisect
 from zerog_tpu_torch.curve import pfold, pscan
 from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from zerog_tpu_torch.curve.jpoints import (
     jac_double, jac_from_affine, jac_infinity, points_to_device)
+from zerog_tpu_torch.field import FQ, FR
 
 torch.set_num_threads(1)
 
@@ -258,3 +262,34 @@ def test_sum_rows_host_build_matches_plain(host_lib, pool, fold_reference,
         for o, b, j in zip(out, ref, jref):
             assert torch.equal(kernels.from_word_planes(o).reshape(1, c, 16), b)
             assert torch.equal(b, j)
+
+
+@pytest.mark.parametrize("kernel", ["field_chain_fr", "field_chain_fq"] + [
+    f"scan_bisect_{body}" for body in scan_bisect.BODIES])
+def test_bench_kernels_host_build_match_plain(host_lib, kernel):
+    """zg_field_chain (k = 16 and k = 3, n not a multiple of a block) and
+    every zg_scan_bisect body (ragged columns, flags at 30 %) against the
+    plain versions."""
+    if kernel.startswith("field_chain"):
+        params = FR if kernel.endswith("fr") else FQ
+        a, b = field_chain.make_inputs(params, 200)
+        for k in (16, 3):
+            out = torch.empty_like(a)
+            assert host_lib.zg_field_chain(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                           200, int(params is FR), k, None) == 0
+            ref = field_chain.field_chain_plain(
+                params, kernels.from_word_planes(a), kernels.from_word_planes(b), k)
+            assert torch.equal(kernels.from_word_planes(out), ref)
+        return
+    body = kernel[len("scan_bisect_"):]
+    r, c = 40, 37
+    sx, sy, _ = scan_bisect.make_inputs(r, c, seed=7)
+    flags = torch.from_numpy(
+        (np.random.default_rng(8).random((r, c)) < 0.3).astype(np.uint8))
+    out = torch.empty_like(sx)
+    assert host_lib.zg_scan_bisect(scan_bisect.BODIES.index(body), sx.data_ptr(),
+                                   sy.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                                   r, c, None) == 0
+    ref = scan_bisect.scan_bisect_plain(body, kernels.from_word_planes(sx),
+                                        kernels.from_word_planes(sy), flags.bool())
+    assert torch.equal(kernels.from_word_planes(out), ref)

@@ -29,6 +29,8 @@ PORT_MODULES = [
     "zerog_tpu_torch.models", "zerog_tpu_torch.models.wnn",
     "zerog_tpu_torch.models.synthetic",
     "zerog_tpu_torch.convert", "zerog_tpu_torch.kernels",
+    "zerog_tpu_torch.bench", "zerog_tpu_torch.bench.field_chain",
+    "zerog_tpu_torch.bench.scan_bisect",
 ]
 
 
@@ -79,6 +81,7 @@ def _entry_points():
     from zerog_tpu_torch.curve.pippenger import build_window_table
     from zerog_tpu_torch.models import make_synthetic_wnn
     from zerog_tpu_torch.poly import NttPlan, get_domain
+    from zerog_tpu_torch.bench import field_chain, scan_bisect
 
     return {
         "Srs.setup": lambda: Srs.setup(2),
@@ -90,12 +93,15 @@ def _entry_points():
         "points_to_device": lambda: points_to_device([(1, 2)]),
         "fixed_base_expand": lambda: fixed_base_expand((1, 2), [1]),
         "Wnn.predict_fn": lambda: make_synthetic_wnn(28, 256, 1, 1).predict_fn(),
+        "bench.field_chain.main": lambda: field_chain.main([]),
+        "bench.scan_bisect.main": lambda: scan_bisect.main([]),
     }
 
 
 ENTRY_POINT_NAMES = ["Srs.setup", "Srs.read", "NttPlan", "get_domain", "msm",
                      "build_window_table", "points_to_device",
-                     "fixed_base_expand", "Wnn.predict_fn"]
+                     "fixed_base_expand", "Wnn.predict_fn",
+                     "bench.field_chain.main", "bench.scan_bisect.main"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINT_NAMES)
@@ -137,9 +143,10 @@ def test_keygen_and_prove_follow_the_srs_device():
 
 def test_cpu_tensors_take_plain_versions_and_leave_the_build_alone():
     from zerog_tpu_torch import kernels
+    from zerog_tpu_torch.bench import field_chain, scan_bisect
     from zerog_tpu_torch.curve import pfold, pscan
     from zerog_tpu_torch.curve.jpoints import jac_infinity
-    from zerog_tpu_torch.field import FQ, to_device, to_limbs
+    from zerog_tpu_torch.field import FQ, FR, to_device, to_limbs
     from zerog_tpu_torch.field import pfield
     from zerog_tpu_torch.poly import pntt
 
@@ -168,12 +175,21 @@ def test_cpu_tensors_take_plain_versions_and_leave_the_build_alone():
     assert pntt.epilogue(acc, zero8, rowc, out_bytes=False).shape == (8, 2, 8)
     xb = torch.full((32, 2, 8), -128, dtype=torch.int8)
     assert torch.equal(pntt.twiddle(xb, torch.zeros((8, 2, 4), dtype=torch.int32)), xb)
+    rone = pfield.to_planes(to_device(to_limbs([FR.r_mont] * 128), "cpu"))
+    assert torch.equal(field_chain.field_chain(FR, a, rone, k=2), a)   # x * 1 * 1
+    one = to_device(to_limbs([FQ.r_mont] * 3), "cpu").reshape(1, 3, 16)
+    for body in scan_bisect.BODIES:
+        x = scan_bisect.scan_bisect(body, one.expand(2, 3, 16), one.expand(2, 3, 16),
+                                    torch.zeros((2, 3), dtype=torch.bool))
+        assert x.shape == (2, 3, 16)
 
     assert kernels._LIB is None
     assert build_dir.exists() == existed
     assert set(kernels.launch_counts()) == {
         "field_binop", "flush_scan_affine", "flush_scan_jac", "sum_rows",
-        "weighted_fold", "ntt_epilogue", "ntt_twiddle"}
+        "weighted_fold", "ntt_epilogue", "ntt_twiddle", "field_chain",
+        "scan_bisect_trivial", "scan_bisect_mul_smem", "scan_bisect_mul_reg",
+        "scan_bisect_madd"}
     assert all(v == 0 for v in kernels.launch_counts().values())
 
 
@@ -203,3 +219,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pntt.epilogue_words(acc, acc[0, 0], acc[:, :, 0].reshape(64))
     with pytest.raises(ValueError, match="CUDA"):
         pntt.twiddle_words(acc.to(torch.int8), torch.zeros((8, 2, 4), dtype=torch.int32))
+    from zerog_tpu_torch.bench import field_chain, scan_bisect
+
+    with pytest.raises(ValueError, match="CUDA"):
+        field_chain.field_chain_words(FQ, w, w)
+    for body in scan_bisect.BODIES:
+        with pytest.raises(ValueError, match="CUDA"):
+            scan_bisect.scan_bisect_words(body, rows, rows, mask)

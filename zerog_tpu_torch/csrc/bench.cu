@@ -1,0 +1,202 @@
+// Kernels 8 and 9: the fused chain of field products and the flush-scan
+// bisection, two measuring kernels.
+//
+// zg_field_chain replaces fused16 (scripts/bench_pallas_field.py, body
+// `kernel`): x <- x * b (Montgomery) k times an element in one launch, so
+// that no word goes to device memory between the products. One thread an
+// element over word planes uint32[8, n]. An element reads 64 bytes, writes
+// 32 and does 128 k multiply-adds; at k = 16 the operations bound it (0.032
+// ms at n = 2^18 against 0.0075 ms of bytes). The design is the plainest
+// one that reaches that bound if the card can: every thread independent,
+// coalesced planes, the chain in registers. Its time at full occupancy
+// against the latency of one dependent chain says what a product costs the
+// card when it is full.
+//
+// zg_scan_bisect replaces the four bodies of bench_pscan_bisect.py (`run`:
+// k_trivial, k_mul, k_mul_reg, k_madd), which bisect the TPU flush scan.
+// What is bisected here is the port's kernel 2 (flush_scan.cu,
+// flush_scan_affine): the same structure, with growing bodies. One thread a
+// column, one warp a block, the R rows walked in order; the stream is word
+// planes uint32[R, 8, C], the flags one byte each [R, C]; every row writes
+// the carry's x to out [R, 8, C]. Bodies, one kernel each:
+//   trivial   the carry is the running sum of the rows, word by word mod 2^32
+//             (bound by bytes: 64 R C);
+//   mul_smem  carry <- carry * x_r (Fq), the carry written to shared memory
+//             and read back every row, the counterpart of the TPU's scratch;
+//   mul_reg   the same product, the carry in registers;
+//   madd      carry <- jac_madd_incomplete(carry, x_r, y_r, flag_r != 0),
+//             starting from (x_0, y_0, 0): kernel 2's add (11 products a row,
+//             bound by operations: 11 * 128 R C multiply-adds).
+// The loop is serial down a column by construction: the bodies measure how
+// far a chain of dependent work, with only a few thousand columns in
+// flight, keeps the card from its bound. Comparing the bodies, and the
+// same bodies at 8x the columns, tells whether kernel 2 waits on memory or
+// on its chain of products.
+#include "field.cuh"
+
+#define ZG_BISECT_THREADS 32  // one warp a block, as flush_scan_affine
+
+template <int F>
+ZG_HD void field_chain_column(long col, const uint32_t* a, const uint32_t* b,
+                              uint32_t* out, long n, int k) {
+    Fe x = fe_load(a, n, col);
+    const Fe y = fe_load(b, n, col);
+#pragma unroll 1
+    for (int i = 0; i < k; i++) x = fe_mul<F>(x, y);
+    fe_store(out, n, col, x);
+}
+
+enum { ZG_BISECT_TRIVIAL = 0, ZG_BISECT_MUL_SMEM, ZG_BISECT_MUL_REG, ZG_BISECT_MADD };
+
+// One column of the bisection. `scratch` holds the carry of mul_smem, word k
+// at scratch[k * sstride] (shared memory on the card).
+template <int BODY>
+ZG_HD void scan_bisect_column(long col, const uint32_t* sx, const uint32_t* sy,
+                              const uint8_t* flags, uint32_t* out, long rows,
+                              long ncols, volatile uint32_t* scratch, int sstride) {
+    if (rows <= 0) return;
+    const long row_words = (long)ZG_NW * ncols;
+    if (BODY == ZG_BISECT_TRIVIAL) {
+        Fe carry = fe_zero();
+#pragma unroll 1
+        for (long r = 0; r < rows; r++) {
+            const Fe q = fe_load(sx + r * row_words, ncols, col);
+#pragma unroll
+            for (int k = 0; k < ZG_NW; k++) carry.w[k] += q.w[k];
+            fe_store(out + r * row_words, ncols, col, carry);
+        }
+    } else if (BODY == ZG_BISECT_MUL_SMEM) {
+        const Fe x0 = fe_load(sx, ncols, col);
+#pragma unroll
+        for (int k = 0; k < ZG_NW; k++) scratch[k * sstride] = x0.w[k];
+#pragma unroll 1
+        for (long r = 0; r < rows; r++) {
+            const long off = r * row_words;
+            Fe carry;
+#pragma unroll
+            for (int k = 0; k < ZG_NW; k++) carry.w[k] = scratch[k * sstride];
+            const Fe m = fe_mul<0>(carry, fe_load(sx + off, ncols, col));
+#pragma unroll
+            for (int k = 0; k < ZG_NW; k++) scratch[k * sstride] = m.w[k];
+            fe_store(out + off, ncols, col, m);
+        }
+    } else if (BODY == ZG_BISECT_MUL_REG) {
+        Fe carry = fe_load(sx, ncols, col);
+#pragma unroll 1
+        for (long r = 0; r < rows; r++) {
+            const long off = r * row_words;
+            carry = fe_mul<0>(carry, fe_load(sx + off, ncols, col));
+            fe_store(out + off, ncols, col, carry);
+        }
+    } else {
+        Jac carry;
+        carry.x = fe_load(sx, ncols, col);
+        carry.y = fe_load(sy, ncols, col);
+        carry.z = fe_zero();
+#pragma unroll 1
+        for (long r = 0; r < rows; r++) {
+            const long off = r * row_words;
+            carry = jac_madd_incomplete(carry, fe_load(sx + off, ncols, col),
+                                        fe_load(sy + off, ncols, col),
+                                        flags[r * ncols + col] != 0);
+            fe_store(out + off, ncols, col, carry.x);
+        }
+    }
+}
+
+#ifdef __CUDACC__
+template <int F>
+__global__ void field_chain_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                                   long n, int k) {
+    const long col = ZG_COL_INDEX;
+    if (col < n) field_chain_column<F>(col, a, b, out, n, k);
+}
+
+// One kernel a body, each with its own name (ptxas reports them apart).
+#define ZG_BISECT_KERNEL(NAME, BODY)                                                   \
+    __global__ void NAME(const uint32_t* sx, const uint32_t* sy, const uint8_t* flags, \
+                         uint32_t* out, long rows, long ncols) {                       \
+        __shared__ uint32_t scratch[ZG_NW * ZG_BISECT_THREADS];                        \
+        const long col = ZG_COL_INDEX;                                                 \
+        if (col < ncols)                                                               \
+            scan_bisect_column<BODY>(col, sx, sy, flags, out, rows, ncols,             \
+                                     scratch + threadIdx.x, ZG_BISECT_THREADS);        \
+    }
+ZG_BISECT_KERNEL(scan_bisect_trivial_kernel, ZG_BISECT_TRIVIAL)
+ZG_BISECT_KERNEL(scan_bisect_mul_smem_kernel, ZG_BISECT_MUL_SMEM)
+ZG_BISECT_KERNEL(scan_bisect_mul_reg_kernel, ZG_BISECT_MUL_REG)
+ZG_BISECT_KERNEL(scan_bisect_madd_kernel, ZG_BISECT_MADD)
+#endif
+
+extern "C" int zg_field_chain(const void* a, const void* b, void* out, long n,
+                              int field, int k, void* stream) {
+    if (field < 0 || field > 1 || k < 0) return -1;
+    const uint32_t* pa = (const uint32_t*)a;
+    const uint32_t* pb = (const uint32_t*)b;
+    uint32_t* po = (uint32_t*)out;
+#ifdef __CUDACC__
+    if (n > 0) {
+        const int threads = 128;
+        if (field == 0)
+            field_chain_kernel<0><<<ZG_BLOCKS(n, threads), threads, 0,
+                                    (cudaStream_t)stream>>>(pa, pb, po, n, k);
+        else
+            field_chain_kernel<1><<<ZG_BLOCKS(n, threads), threads, 0,
+                                    (cudaStream_t)stream>>>(pa, pb, po, n, k);
+    }
+    return (int)cudaGetLastError();
+#else
+    (void)stream;
+    for (long col = 0; col < n; col++) {
+        if (field == 0) field_chain_column<0>(col, pa, pb, po, n, k);
+        else field_chain_column<1>(col, pa, pb, po, n, k);
+    }
+    return 0;
+#endif
+}
+
+#ifndef __CUDACC__
+template <int BODY>
+static void scan_bisect_host(const uint32_t* sx, const uint32_t* sy,
+                             const uint8_t* flags, uint32_t* out, long rows,
+                             long ncols) {
+    uint32_t scratch[ZG_NW];
+    for (long col = 0; col < ncols; col++)
+        scan_bisect_column<BODY>(col, sx, sy, flags, out, rows, ncols, scratch, 1);
+}
+#endif
+
+// body: 0 = trivial, 1 = mul_smem, 2 = mul_reg, 3 = madd
+extern "C" int zg_scan_bisect(int body, const void* sx, const void* sy,
+                              const void* flags, void* out, long rows, long ncols,
+                              void* stream) {
+    if (body < ZG_BISECT_TRIVIAL || body > ZG_BISECT_MADD) return -1;
+    const uint32_t* px = (const uint32_t*)sx;
+    const uint32_t* py = (const uint32_t*)sy;
+    const uint8_t* pf = (const uint8_t*)flags;
+    uint32_t* po = (uint32_t*)out;
+#ifdef __CUDACC__
+    if (ncols > 0) {
+        void (*kernel)(const uint32_t*, const uint32_t*, const uint8_t*, uint32_t*, long,
+                       long) =
+            body == ZG_BISECT_TRIVIAL    ? scan_bisect_trivial_kernel
+            : body == ZG_BISECT_MUL_SMEM ? scan_bisect_mul_smem_kernel
+            : body == ZG_BISECT_MUL_REG  ? scan_bisect_mul_reg_kernel
+                                         : scan_bisect_madd_kernel;
+        kernel<<<ZG_BLOCKS(ncols, ZG_BISECT_THREADS), ZG_BISECT_THREADS, 0,
+                 (cudaStream_t)stream>>>(px, py, pf, po, rows, ncols);
+    }
+    return (int)cudaGetLastError();
+#else
+    (void)stream;
+    if (body == ZG_BISECT_TRIVIAL)
+        scan_bisect_host<ZG_BISECT_TRIVIAL>(px, py, pf, po, rows, ncols);
+    else if (body == ZG_BISECT_MUL_SMEM)
+        scan_bisect_host<ZG_BISECT_MUL_SMEM>(px, py, pf, po, rows, ncols);
+    else if (body == ZG_BISECT_MUL_REG)
+        scan_bisect_host<ZG_BISECT_MUL_REG>(px, py, pf, po, rows, ncols);
+    else
+        scan_bisect_host<ZG_BISECT_MADD>(px, py, pf, po, rows, ncols);
+    return 0;
+#endif
+}

@@ -36,7 +36,7 @@ __all__ = ["build", "lib", "register", "launch_counts", "reset_launch_counts",
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("field_binop.cu", "flush_scan.cu", "fold.cu", "ntt.cu")
+SOURCES = ("field_binop.cu", "flush_scan.cu", "fold.cu", "ntt.cu", "bench.cu")
 HEADERS = ("field.cuh",)
 LIB_NAME = "libzerog_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,6 +60,8 @@ _SIGNATURES = {
     "zg_weighted_fold": [_P] * 9 + [_L, _L, _P],
     "zg_ntt_epilogue": [_P] * 5 + [_L, _L, _I, _P],
     "zg_ntt_twiddle": [_P] * 3 + [_L, _L, _L, _P],
+    "zg_field_chain": [_P, _P, _P, _L, _I, _I, _P],
+    "zg_scan_bisect": [_I] + [_P] * 4 + [_L, _L, _P],
 }
 
 
@@ -84,11 +86,14 @@ def _parse_ptxas(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            mm = re.match(r"_Z\d+([A-Za-z_][A-Za-z0-9_]*?)(?:I|P|v|$)", m.group(1))
-            name = m.group(1)
+            mangled = name = m.group(1)
+            mm = re.match(r"_Z(\d+)", mangled)
             if mm:
-                name = mm.group(1) + ("<Fr>" if "ILi1E" in m.group(1) else
-                                      "<Fq>" if "ILi0E" in m.group(1) else "")
+                end = mm.end() + int(mm.group(1))
+                name = mangled[mm.end():end]
+                if mangled[end:end + 1] == "I":
+                    name += ("<Fr>" if "ILi1E" in mangled else
+                             "<Fq>" if "ILi0E" in mangled else "")
             out.setdefault(name, {})
             continue
         if name is None:
