@@ -54,7 +54,8 @@ import numpy as np
 import torch
 
 from zerog_tpu_torch import kernels
-from zerog_tpu_torch.bench import MADS_PER_MUL, bound, gpu_line, time_ms
+from zerog_tpu_torch.bench import (MADS_PER_MUL, bound, flush_scan_affine_bound,
+                                   gpu_line, time_ms, wall_ms)
 from zerog_tpu_torch.bench import field_chain, scan_bisect
 from zerog_tpu_torch.field import FR, FQ, to_limbs, from_limbs, to_device
 from zerog_tpu_torch.field import pfield
@@ -70,7 +71,6 @@ DEV = torch.device("cuda", 0)
 K = 14
 SEED = 20240914
 
-MULS_MADD = 11      # mixed add, 8M + 3S
 MULS_ADD = 16       # general incomplete add, 12M + 4S
 
 KERNEL_META = {
@@ -213,7 +213,7 @@ def _scan_jac_case(planes, check=True):
     res = _fold_work(sz, fl)
     if check:
         stream = tuple(pscan.pieces_from_planes(p, 1, ct) for p in (sx, sy, sz))
-        ref, res["plain_ms"] = _timed_plain(lambda: pscan.flush_scan_plain(
+        ref, res["plain_ms"] = wall_ms(lambda: pscan.flush_scan_plain(
             stream, fl.bool().reshape(r, 1, ct), affine=False))
         if not all(_eq(a, b) for a, b in zip(got, ref)):
             raise AssertionError(f"flush_scan_jac R={r} C={ct} != plain version")
@@ -253,7 +253,7 @@ def _sum_rows_case(jobs, check=True):
             l, _, ct = job[0].shape
             xs = tuple(kernels.from_word_planes(p).reshape(l, 1, ct, 16)
                        for p in job)
-            ref, plain = _timed_plain(lambda: pfold.sum_rows_plain(xs))
+            ref, plain = wall_ms(lambda: pfold.sum_rows_plain(xs))
             got = tuple(kernels.from_word_planes(o).reshape(1, ct, 16)
                         for o in out)
             if not all(_eq(a, b) for a, b in zip(got, ref)):
@@ -379,15 +379,12 @@ def phase_kernels():
     sync()
     got = tuple(pscan.pieces_from_planes(
         torch.cat([out[i], out[3 + i][None]], dim=0), g, cdim) for i in range(3))
-    t0 = time.time()
-    ref = pscan.flush_scan_plain((sx, sy, sval), flags, affine=True)
-    sync()
-    plain2 = (time.time() - t0) * 1e3
+    ref, plain2 = wall_ms(
+        lambda: pscan.flush_scan_plain((sx, sy, sval), flags, affine=True))
     if not all(_eq(a, b) for a, b in zip(got, ref)):
         raise AssertionError("flush_scan_affine != plain version")
     ms2 = time_ms(run_affine, reps=3)
-    b2, by2 = bound(r_rows * ct * (2 * 32 + 2 + 3 * 32) + 3 * 32 * ct,
-                    r_rows * ct * MULS_MADD * MADS_PER_MUL)
+    b2, by2 = flush_scan_affine_bound(r_rows, ct)
     res["flush_scan_affine"] = dict(
         ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
         max_abs_err=_max_abs_err(got, ref), shape=f"R={r_rows}, columns={ct}")
@@ -434,10 +431,7 @@ def phase_kernels():
     out5 = pfold.weighted_fold_words(*pl5)
     sync()
     got5 = tuple(kernels.from_word_planes(o).reshape(g, 2, 16) for o in out5)
-    t0 = time.time()
-    ref5 = pfold.weighted_plain(st, bias)
-    sync()
-    plain5 = (time.time() - t0) * 1e3
+    ref5, plain5 = wall_ms(lambda: pfold.weighted_plain(st, bias))
     if not all(_eq(a, b) for a, b in zip(got5, ref5)):
         raise AssertionError("weighted_fold != plain version")
     ms5 = time_ms(lambda: pfold.weighted_fold_words(*pl5))
@@ -486,10 +480,11 @@ def phase_bench():
     after: the path of kernels 8 and 9. Then each kernel is held against its
     plain version (``check``): ``field_chain`` at n = 2^18 limb for limb and
     its first 64 elements against Python ints; the bisection bodies at
-    R = 1,024, C = 2,560 (``madd`` over its first 128 rows as their own
-    stream), the wide run (C = 20,480) against the narrow one on the columns
-    they share. ``flush_scan_affine`` is timed on the same rows in the same
-    run. Returns ({name: result}, launches)."""
+    R = 1,024, C = 2,560 over all rows, the wide run (C = 20,480) against the
+    narrow one on the columns they share. ``flush_scan_affine`` is timed on
+    the same rows in the same run, and ``torch.cumsum`` (the library call
+    that computes ``trivial``'s function on its word planes) beside
+    ``trivial``. Returns ({name: result}, launches)."""
     kernels.reset_launch_counts()
     chain, chain_outs = field_chain.run(FR, CHAIN_LOG_N, DEV)
     chain["product_latency_us"] = field_chain.product_latency_us(FR, DEV)
@@ -504,6 +499,13 @@ def phase_bench():
     checked = scan_bisect.check(narrow_in, bisect_outs)
     for body in scan_bisect.BODIES:
         res[f"scan_bisect_{body}"] = {**bisect["bodies"][body], **checked[body]}
+    sx = narrow_in[0]
+    if not torch.equal(torch.cumsum(sx, 0, dtype=torch.int32),
+                       bisect_outs["trivial"][0]):
+        raise AssertionError("torch.cumsum != scan_bisect_trivial")
+    res["scan_bisect_trivial"]["library_ms"] = time_ms(
+        lambda: torch.cumsum(sx, 0, dtype=torch.int32))
+    del sx
     del chain_outs, narrow_in, bisect_outs
     emit(dict(phase="bench", equal_to_plain=True, tolerance=0,
               product_latency_us_fq=bisect["product_latency_us"],
@@ -568,14 +570,6 @@ def _epilogue_bound(t, lanes, with_twiddle):
     return bound(nbytes, mads)
 
 
-def _timed_plain(fn):
-    sync()
-    t0 = time.time()
-    out = fn()
-    sync()
-    return out, (time.time() - t0) * 1e3
-
-
 def _check_engine_kernels(rec, rng, n, res, levels_out):
     """Holds every kernel call of one recorded transform against its plain
     version (and the with-twiddle epilogue variants on the same
@@ -583,7 +577,7 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
     for (dp, key, xb), ((acc, colsum, rowc, tw, out_bytes), out) in zip(
             rec.levels, rec.epilogues):
         t, lanes = acc.shape[1], acc.shape[2]
-        ref, plain = _timed_plain(
+        ref, plain = wall_ms(
             lambda: pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes))
         if not _eq(out, ref):
             raise AssertionError(f"ntt_epilogue t={t} lanes={lanes} != plain")
@@ -610,7 +604,7 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
         twr = _rand_word_planes(rng, t, lanes)
         for ob in (True, False):
             got = pntt.epilogue_words(acc, colsum, rowc, twr, ob)
-            ref, plain_tw = _timed_plain(
+            ref, plain_tw = wall_ms(
                 lambda: pntt.epilogue_plain(acc, colsum, rowc, twr, ob))
             if not _eq(got, ref):
                 raise AssertionError(f"ntt_epilogue with twiddle t={t} "
@@ -623,7 +617,7 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
         del twr, got, ref
     for (xb, twc), out in rec.twiddles:
         s, lanes, r = xb.shape[1], xb.shape[2], twc.shape[2]
-        ref, plain = _timed_plain(lambda: pntt.twiddle_plain(xb, twc))
+        ref, plain = wall_ms(lambda: pntt.twiddle_plain(xb, twc))
         if not _eq(out, ref):
             raise AssertionError(f"ntt_twiddle s={s} lanes={lanes} != plain")
         ms = time_ms(lambda: pntt.twiddle_words(xb, twc), reps=5)
@@ -1103,7 +1097,7 @@ def main():
             launches_by_path={p: c.get(name, 0) for p, c in by_path.items()},
             max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
             plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
-            bound_by=r.get("bound_by"), library_ms=None,
+            bound_by=r.get("bound_by"), library_ms=r.get("library_ms"),
             shape=r.get("shape"),
             on_main_path=name != "field_binop" and not bench)
         if bench:

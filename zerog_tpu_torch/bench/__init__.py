@@ -15,12 +15,14 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 
 import numpy as np
 import torch
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_INT32_MAD_PER_S", "MADS_PER_MUL",
-           "random_words", "time_ms", "bound", "gpu_line"]
+           "random_words", "time_ms", "wall_ms", "bound",
+           "flush_scan_affine_bound", "gpu_line"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
 # memory; 67 TFLOP/s float32 outside the tensor cores = 33.5e12 fused
@@ -62,12 +64,30 @@ def time_ms(fn, reps=5, warm=1):
     return statistics.median(out)
 
 
+def wall_ms(fn):
+    """(fn(), its milliseconds on the host's clock), the card synchronised
+    before and after: for a plain version's one run."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
 def bound(nbytes, mads):
     """(ms, "bytes" or "operations"): the larger of the bytes over the memory
     rate and the 32-bit multiply-adds over their peak rate."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
     to = mads / PEAK_INT32_MAD_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def flush_scan_affine_bound(rows, cols):
+    """bound() of one ``flush_scan_affine`` launch over R x C: x, y, the
+    valid and flag bytes of every row read, the three output words written
+    every row and the carry's once; one mixed add (11 products) a row."""
+    return bound(rows * cols * (2 * 32 + 2 + 3 * 32) + 3 * 32 * cols,
+                 rows * cols * 11 * MADS_PER_MUL)
 
 
 def gpu_line() -> str:

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import random
 import sys
-import time
 
 import numpy as np
 import torch
@@ -45,7 +44,7 @@ from ..device import resolve_device
 from ..field import FR, from_limbs, to_limbs
 from ..field.params import FieldParams, NLIMB
 from ..field.pfield import field_binop_plain, field_binop_words
-from . import MADS_PER_MUL, bound, gpu_line, random_words, time_ms
+from . import MADS_PER_MUL, bound, gpu_line, random_words, time_ms, wall_ms
 
 __all__ = ["field_chain", "field_chain_words", "field_chain_plain",
            "head_values", "make_inputs", "product_latency_us", "run", "check", "main"]
@@ -150,11 +149,7 @@ def run(params: FieldParams, log_n: int, device):
         return x
 
     fused_out, chained_out = field_chain_words(params, a, b, k), chained()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    plain_out = field_chain_plain(params, la, lb, k)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
+    plain_out, plain_ms = wall_ms(lambda: field_chain_plain(params, la, lb, k))
     ms = time_ms(lambda: field_chain_words(params, a, b, k))
     chained_ms = time_ms(chained)
     bms, by = bound(3 * 32 * n, MADS_PER_MUL * k * n)

@@ -56,8 +56,6 @@ explains.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -66,7 +64,8 @@ from ..curve.jpoints import jac_madd_incomplete
 from ..curve.pscan import flush_scan_affine_words
 from ..device import resolve_device
 from ..field import FQ, jfq
-from . import MADS_PER_MUL, bound, gpu_line, random_words, time_ms
+from . import (MADS_PER_MUL, bound, flush_scan_affine_bound, gpu_line,
+               random_words, time_ms, wall_ms)
 from .field_chain import product_latency_us
 
 __all__ = ["BODIES", "scan_bisect", "scan_bisect_words", "scan_bisect_plain",
@@ -78,7 +77,6 @@ COLS = 2560             # flush_scan_affine's columns in a k = 14 proof
 WIDE = 8 * COLS
 FLAG_RATE = 0.1         # the TPU script's
 SEED = 0                # the TPU script's
-MADD_CHECK_ROWS = 128   # madd's plain check: its own stream of the first rows
 # products a row: all that one thread issues, in order, and those on the
 # chain carried from row to row (madd: z' = z (x_r z^2 - x), three)
 PRODUCTS = {"trivial": 0, "mul_smem": 1, "mul_reg": 1, "madd": 11}
@@ -108,33 +106,30 @@ def scan_bisect_plain(body: str, sx, sy, flags):
     return torch.stack(rows)
 
 
-def _launch(body: str, sx, sy, flags):
-    name = "scan_bisect_" + body
-    if not isinstance(sx, torch.Tensor) or sx.dim() != 3:
-        raise ValueError(f"{name}: expected word planes [R, 8, C]")
-    r, _, c = sx.shape
-    kernels.check_planes(f"{name} x", sx, (r, 8, c))
-    kernels.check_planes(f"{name} y", sy, (r, 8, c))
-    kernels.check_planes(f"{name} flags", flags, (r, c), torch.uint8)
-    if sy.device != sx.device or flags.device != sx.device:
-        raise ValueError(f"{name}: operands on different devices")
-    out = torch.empty_like(sx)
-    code = kernels.lib().zg_scan_bisect(
-        BODIES.index(body), sx.data_ptr(), sy.data_ptr(), flags.data_ptr(),
-        out.data_ptr(), r, c, kernels.current_stream(sx.device))
-    kernels.launched(name, code)
-    return out
-
-
 def _wrapper(body: str):
-    def words(sx, sy, flags):
-        return _launch(body, sx, sy, flags)
+    name = "scan_bisect_" + body
 
-    words.__name__ = words.__qualname__ = f"scan_bisect_{body}_words"
-    words.__doc__ = (f"Launch ``scan_bisect_{body}``. sx, sy: int32 word planes "
-                     "[R, 8, C]; flags: uint8 [R, C]. Returns the carry's x "
-                     "after every row, word planes [R, 8, C].")
-    return kernels.register(f"scan_bisect_{body}")(words)
+    def words(sx, sy, flags):
+        if not isinstance(sx, torch.Tensor) or sx.dim() != 3:
+            raise ValueError(f"{name}: expected word planes [R, 8, C]")
+        r, _, c = sx.shape
+        kernels.check_planes(f"{name} x", sx, (r, 8, c))
+        kernels.check_planes(f"{name} y", sy, (r, 8, c))
+        kernels.check_planes(f"{name} flags", flags, (r, c), torch.uint8)
+        if sy.device != sx.device or flags.device != sx.device:
+            raise ValueError(f"{name}: operands on different devices")
+        out = torch.empty_like(sx)
+        code = kernels.lib().zg_scan_bisect(
+            BODIES.index(body), sx.data_ptr(), sy.data_ptr(), flags.data_ptr(),
+            out.data_ptr(), r, c, kernels.current_stream(sx.device))
+        kernels.launched(name, code)
+        return out
+
+    words.__name__ = words.__qualname__ = f"{name}_words"
+    words.__doc__ = (f"Launch ``{name}``. sx, sy: int32 word planes [R, 8, C]; "
+                     "flags: uint8 [R, C]. Returns the carry's x after every "
+                     "row, word planes [R, 8, C].")
+    return kernels.register(name)(words)
 
 
 #: one registered wrapper (and launch count) a body
@@ -212,8 +207,7 @@ def run(device):
     valid = torch.from_numpy((rng.random((rows, cols)) >= 0.01).astype(np.uint8))
     flags = torch.from_numpy((rng.random((rows, cols)) < 0.025).astype(np.uint8))
     affine = (narrow_in[0], narrow_in[1], valid.to(device), flags.to(device))
-    bms, by = bound(rows * cols * (2 * 32 + 2 + 3 * 32) + 3 * 32 * cols,
-                    rows * cols * PRODUCTS["madd"] * MADS_PER_MUL)
+    bms, by = flush_scan_affine_bound(rows, cols)
     res["flush_scan_affine"] = dict(
         shape=f"R={rows}, columns={cols}", bound_ms=bms, bound_by=by,
         ms=time_ms(lambda: flush_scan_affine_words(*affine), reps=3),
@@ -221,53 +215,30 @@ def run(device):
     return dict(product_latency_us=latency, bodies=res), (narrow_in, outs)
 
 
-def _timed(fn):
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.time() - t0) * 1e3
-
-
 def check(narrow_in, outs):
     """Hold the outputs of :func:`run` against the plain version limb for
-    limb: ``trivial`` and the ``mul`` bodies over all rows; ``madd`` over its
-    first MADD_CHECK_ROWS rows, launched as their own stream (a scan's first
-    rows depend on nothing after them), which must also equal the first rows
-    of the whole run; every wide output's first columns against the narrow
-    output. Raises on a difference; returns {body: plain_ms, plain_rows,
+    limb over all rows, and every wide output's first columns against the
+    narrow output. Raises on a difference; returns {body: plain_ms,
     max_abs_err}."""
     sx, sy, flags = narrow_in
-    cols, madd_rows = sx.shape[2], MADD_CHECK_ROWS
+    cols = sx.shape[2]
     lx, ly, lf = (kernels.from_word_planes(sx), kernels.from_word_planes(sy),
                   flags.bool())
-    res = {}
     for body in BODIES:
         narrow, wide = outs[body]
         if not torch.equal(wide[..., :cols], narrow):
             raise AssertionError(f"scan_bisect_{body}: the wide run's first "
                                  f"{cols} columns differ from the narrow run")
-    plain = {}
-    for body in ("trivial", "mul_reg", "madd"):
-        if body == "madd":
-            head = tuple(t[:madd_rows].contiguous() for t in narrow_in)
-            short = scan_bisect_words("madd", *head)
-            if not torch.equal(short, outs["madd"][0][:madd_rows]):
-                raise AssertionError("scan_bisect_madd: the first rows as their "
-                                     "own stream differ from the whole run")
-            ref, ms = _timed(lambda: scan_bisect_plain(
-                "madd", lx[:madd_rows], ly[:madd_rows], lf[:madd_rows]))
-        else:
-            ref, ms = _timed(lambda: scan_bisect_plain(body, lx, ly, lf))
-        plain[body] = (ref, ms, ref.shape[0])
+    plain = {body: wall_ms(lambda: scan_bisect_plain(body, lx, ly, lf))
+             for body in ("trivial", "mul_reg", "madd")}
     plain["mul_smem"] = plain["mul_reg"]
+    res = {}
     for body in BODIES:
-        ref, ms, rows = plain[body]
-        got = kernels.from_word_planes(outs[body][0][:rows])
+        ref, ms = plain[body]
+        got = kernels.from_word_planes(outs[body][0])
         if not torch.equal(got, ref):
             raise AssertionError(f"scan_bisect_{body} != plain version")
-        res[body] = dict(plain_ms=ms, plain_rows=rows,
-                         max_abs_err=int((got - ref).abs().max()))
+        res[body] = dict(plain_ms=ms, max_abs_err=int((got - ref).abs().max()))
     return res
 
 
@@ -284,8 +255,8 @@ def main(argv=None) -> None:
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}; chain floor "
               f"{r['chain_floor_ms']:.3f} ms (carried {r['carried_floor_ms']:.3f})"
               f"{wide}", flush=True)
-    for body, r in check(narrow_in, outs).items():
-        print(f"{body}: equal to the plain version over {r['plain_rows']} rows",
+    for body in check(narrow_in, outs):
+        print(f"{body}: equal to the plain version over all {ROWS} rows",
               flush=True)
 
 
