@@ -16,22 +16,30 @@ through the kernels, and checks the results by the repo's own means
 exact one, proofs verify, tampered proofs and wrong instances rejected, equal
 seeds give equal bytes, engine and butterflies give equal bytes).
 
-``flush_scan_jac`` and ``sum_rows`` are also held and timed on dense inputs
-(no identity row, so no add can be skipped), and on the operands of every
-launch of the warm WNN proof (``path_kernels`` line: the launches recorded
-during that proof, each timed again, the share of identity rows, the adds
-really required and the longest chain of them, and the launch with the
-longest chain held against the plain version). Their ``bound_ms`` counts
-the bytes and adds that the operands require (x and y of a row are read and
-an add computed only where the row is not the identity);
-``bound_all_rows_ms`` reads every row and counts an add for every row.
+``flush_scan_affine`` is also held and timed with flags only at row 0
+(``one_segment``: every column one segment of all R rows, the worst case
+for its segment split). ``flush_scan_jac`` and ``sum_rows`` are also held
+and timed on dense inputs (no identity row, so no add can be skipped).
+Kernels 2-4 are timed again on the operands of every launch of the warm
+WNN proof (``path_kernels`` line: the launches recorded during that proof,
+the share of identity or invalid rows, the adds really required and the
+longest chain of them, and the launch with the longest chain held against
+the plain version; kernel 2 also its segments — the longest, the columns
+that are one segment, its chain floor — and, from each launch's bucket
+keys, where bucket 0 sits). Their ``bound_ms`` counts the bytes and adds
+that the operands require (x and y of a row are read and an add computed
+only where the row is valid, not the identity, and not the first of its
+segment); ``bound_all_rows_ms`` reads every row and counts an add for every
+row. The warm WNN proof's SHA-256 is asserted: a kernel change must leave
+the proof's bytes as they were.
 
 The ``bench`` phase drives the two measuring kernels through their
 benchmarks' entry points (``zerog_tpu_torch.bench``): ``field_chain``, 16
 chained Fr products an element at n = 2^18, beside 16 launches of
 ``field_binop``; the four ``scan_bisect`` bodies at R = 1,024 rows and
-2,560 and 20,480 columns, beside ``flush_scan_affine`` at R x 2,560 (where
-kernel 2's time goes). Their rows in the ``kernels`` line count the
+2,560 and 20,480 columns, beside ``flush_scan_affine`` at R x 2,560 (its
+chain floor counts its longest segment), and ``torch.cumsum`` beside
+``trivial``, which computes the same function. Their rows in the ``kernels`` line count the
 launches of that path (``launches_path``); no proof path runs them.
 
 It prints one JSON object a line; any phase that fails raises and the run
@@ -55,7 +63,7 @@ import torch
 
 from zerog_tpu_torch import kernels
 from zerog_tpu_torch.bench import (MADS_PER_MUL, bound, flush_scan_affine_bound,
-                                   gpu_line, time_ms, wall_ms)
+                                   gpu_line, segment_ids, time_ms, wall_ms)
 from zerog_tpu_torch.bench import field_chain, scan_bisect
 from zerog_tpu_torch.field import FR, FQ, to_limbs, from_limbs, to_device
 from zerog_tpu_torch.field import pfield
@@ -72,6 +80,12 @@ K = 14
 SEED = 20240914
 
 MULS_ADD = 16       # general incomplete add, 12M + 4S
+# of the mixed add's 11 products, those on the chain from one row's carry to
+# the next (z' = z H, H = x_r z^2 - x)
+CARRIED_PRODUCTS_MADD = scan_bisect.CARRIED_PRODUCTS["madd"]
+# the warm WNN proof's bytes, unchanged by every kernel change since they
+# were first recorded
+WNN_PROOF_SHA256 = "99df386d0fd592c34ceb405e502e089e204ff6d89ca83dd6f1f9c22b117d9c66"
 
 KERNEL_META = {
     "field_binop": ("zerog_tpu_torch/csrc/field_binop.cu",
@@ -153,19 +167,31 @@ def _max_abs_err(got, ref):
     return max(int((g - r).abs().max()) for g, r in zip(got, ref))
 
 
-def _fold_work(z, flags=None):
-    """The adds a Jacobian fold really needs, read from its operands: z word
-    planes [R, 8, C] and flush flags uint8 [R, C] (None: one fold a column,
-    as in ``sum_rows``). A segment runs from row 0 or a flagged row to the
-    next flag; its first non-identity row is copied, every later one is
-    added. Returns the share of identity rows (z = 0), the required adds and
-    the longest chain of them in one segment."""
-    nz = (z != 0).any(dim=1)
+def _nonidentity(z):
+    """Rows of z word planes [R, 8, C] that are not the identity (z != 0)."""
+    return (z != 0).any(dim=1)
+
+
+def _segment_adds(nz, flags):
+    """Per (column, segment) id of a fold: (ids of the rows [R*C], the rows,
+    the required adds). A segment runs from row 0 or a flagged row to the
+    next flag; its first row in `nz` (bool [R, C]: not the identity, or
+    valid) is copied, every later one is added."""
     r, c = nz.shape
-    seg = (torch.zeros_like(nz, dtype=torch.int64) if flags is None
-           else torch.cumsum(flags.to(torch.int64), dim=0))
-    key = seg + (r + 1) * torch.arange(c, device=z.device)[None, :]
-    adds = (torch.bincount(key[nz], minlength=(r + 1) * c) - 1).clamp(min=0)
+    key = segment_ids(flags).reshape(-1)
+    rows = torch.bincount(key, minlength=(r + 1) * c)
+    adds = (torch.bincount(key[nz.reshape(-1)], minlength=(r + 1) * c) - 1).clamp(min=0)
+    return key, rows, adds
+
+
+def _fold_work(nz, flags=None):
+    """The adds a Jacobian fold really needs, read from its operands: the
+    rows that are not the identity, bool [R, C], and flush flags uint8
+    [R, C] (None: one fold a column, as in ``sum_rows``). Returns the share
+    of identity rows, the required adds and the longest chain of them in
+    one segment."""
+    r, c = nz.shape
+    _, _, adds = _segment_adds(nz, torch.zeros_like(nz) if flags is None else flags)
     return dict(identity_share=1.0 - float(nz.float().mean()),
                 nonidentity_rows=int(nz.sum()),
                 required_adds=int(adds.sum()), longest_chain=int(adds.max()),
@@ -200,6 +226,83 @@ def _sum_rows_bounds(jobs, work):
                        sum(l * c * 96 + 96 * c for l, c in lanes), work)
 
 
+def _affine_work(valid, flags, buckets=None):
+    """What one affine flush scan needs, read from its operands: valid and
+    flags uint8 [R, C]. Returns the valid and flag shares, the valid rows,
+    the required adds (a segment's first valid row is copied, every later
+    valid row added), the longest segment (rows) and chain (adds), and the
+    columns that are one segment of all R rows. With `buckets` (each row's
+    bucket, int [R, C]), also the share of rows in bucket-0 segments, bucket
+    0's share of the required adds, and the longest segment and chain of a
+    bucket other than 0."""
+    live = valid.bool()
+    r, c = live.shape
+    key, lengths, adds = _segment_adds(live, flags)
+    out = dict(valid_share=float(live.float().mean()),
+               flag_share=float(flags.bool().float().mean()),
+               valid_rows=int(live.sum()), required_adds=int(adds.sum()),
+               all_rows_adds=r * c, longest_segment=int(lengths.max()),
+               longest_chain=int(adds.max()),
+               one_segment_columns=int((flags[1:] == 0).all(dim=0).sum()))
+    if buckets is not None:
+        flat = buckets.reshape(-1).to(torch.int64)
+        seg_bucket = torch.full_like(lengths, -1)
+        seg_bucket[key] = flat
+        if not torch.equal(seg_bucket[key], flat):
+            raise AssertionError("flush_scan_affine: a segment spans two buckets")
+        zero = (lengths > 0) & (seg_bucket == 0)
+        other = (lengths > 0) & (seg_bucket != 0)
+        out.update(
+            bucket0_row_share=float((flat == 0).float().mean()),
+            bucket0_adds_share=int(adds[zero].sum()) / max(1, out["required_adds"]),
+            longest_segment_nonzero_bucket=int(lengths[other].max()) if other.any() else 0,
+            longest_chain_nonzero_bucket=int(adds[other].max()) if other.any() else 0)
+    return out
+
+
+def _scan_affine_bounds(r, ct, work):
+    """Bounds of one affine scan [R, 8, C]: the valid and flag bytes of every
+    row are read, x and y of its valid rows only, one mixed add a required
+    add; every piece and the final carries are written. Beside it the bound
+    that reads every row and counts an add for every row."""
+    b, by = flush_scan_affine_bound(r, ct, work["valid_rows"], work["required_adds"])
+    return dict(bound_ms=b, bound_by=by,
+                bound_all_rows_ms=flush_scan_affine_bound(r, ct)[0])
+
+
+def _scan_affine_case(planes, latency_us, check=True, buckets=None):
+    """One affine flush scan on word planes (sx, sy, valid, flags): launch
+    and hold against the plain version limb for limb (if `check`), time,
+    and read its work (`_affine_work`, with `buckets` if given); its chain
+    floor is the longest segment's rows x the 3 products carried from row to
+    row x one product's latency. Returns (result dict, pieces as limbs
+    [R+1, 1, C, 16] if `check`, else None)."""
+    sx, sy, val, fl = planes
+    r, _, ct = sx.shape
+    res = _affine_work(val, fl, buckets)
+    got = None
+    if check:
+        out = pscan.flush_scan_affine_words(*planes)
+        sync()
+        got = tuple(pscan.pieces_from_planes(
+            torch.cat([out[i], out[3 + i][None]], dim=0), 1, ct) for i in range(3))
+        stream = tuple(pscan.pieces_from_planes(p, 1, ct) for p in (sx, sy))
+        ref, res["plain_ms"] = wall_ms(lambda: pscan.flush_scan_plain(
+            stream + (val.bool().reshape(r, 1, ct),), fl.bool().reshape(r, 1, ct),
+            affine=True))
+        if not all(_eq(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"flush_scan_affine R={r} C={ct} != plain version")
+        res["max_abs_err"] = _max_abs_err(got, ref)
+        del ref
+    res["ms"] = time_ms(lambda: pscan.flush_scan_affine_words(*planes), reps=3)
+    res.update(_scan_affine_bounds(r, ct, res))
+    res["chain_floor_ms"] = (res["longest_segment"] * CARRIED_PRODUCTS_MADD
+                             * latency_us / 1e3)
+    res["product_latency_us"] = latency_us
+    res["shape"] = f"R={r}, columns={ct}"
+    return res, got
+
+
 def _scan_jac_case(planes, check=True):
     """One Jacobian flush scan on word planes (sx, sy, sz, flags): launch,
     hold against the plain version limb for limb (if `check`), time.
@@ -210,7 +313,7 @@ def _scan_jac_case(planes, check=True):
     sync()
     got = tuple(pscan.pieces_from_planes(
         torch.cat([out[i], out[3 + i][None]], dim=0), 1, ct) for i in range(3))
-    res = _fold_work(sz, fl)
+    res = _fold_work(_nonidentity(sz), fl)
     if check:
         stream = tuple(pscan.pieces_from_planes(p, 1, ct) for p in (sx, sy, sz))
         ref, res["plain_ms"] = wall_ms(lambda: pscan.flush_scan_plain(
@@ -246,7 +349,7 @@ def _sum_rows_case(jobs, check=True):
 
     outs = run()
     sync()
-    res = _merge_work([_fold_work(job[2]) for job in jobs])
+    res = _merge_work([_fold_work(_nonidentity(job[2])) for job in jobs])
     if check:
         res["plain_ms"], res["max_abs_err"] = 0.0, 0
         for job, out in zip(jobs, outs):
@@ -271,14 +374,39 @@ def _sum_rows_case(jobs, check=True):
 
 
 class _MsmRecorder:
-    """Records the operands and results of every ``flush_scan_jac`` and
-    ``sum_rows`` launch while it is active (the wrappers count their launches
-    by kernel name, so the counts are unaffected)."""
+    """Records the operands and results of every ``flush_scan_affine``,
+    ``flush_scan_jac`` and ``sum_rows`` launch while it is active (the
+    wrappers count their launches by kernel name, so the counts are
+    unaffected). Each affine launch is paired with the ``_stream_info`` call
+    whose flags it scans, for the bucket of every row: the stream's sorted
+    digit keys, column-major."""
 
     def __enter__(self):
-        self.scans, self.folds = [], []
-        self._saved = (pscan.flush_scan_jac_words, pfold.sum_rows_words)
-        scan, fold = self._saved
+        self.affine, self.scans, self.folds = [], [], []
+        self._infos = []
+        self._saved = (pscan.flush_scan_affine_words, pscan.flush_scan_jac_words,
+                       pfold.sum_rows_words, pippenger._stream_info)
+        affine, scan, fold, info = self._saved
+
+        def rec_info(keys, r_rows, nb):
+            out = info(keys, r_rows, nb)
+            self._infos.append((pippenger._colmaj(keys, r_rows), out[0]))
+            return out
+
+        def rec_affine(*planes):
+            out = affine(*planes)
+            buckets = None
+            for i in range(len(self._infos) - 1, -1, -1):
+                ksc, flags = self._infos[i]
+                if _eq(pscan.stream_to_planes(flags), planes[3]):
+                    buckets = ksc.reshape(planes[3].shape)
+                    del self._infos[:i + 1]
+                    break
+            if buckets is None:
+                raise AssertionError("flush_scan_affine: no _stream_info call "
+                                     "made this launch's flags")
+            self.affine.append((planes, out, buckets))
+            return out
 
         def rec_scan(*planes):
             out = scan(*planes)
@@ -290,11 +418,14 @@ class _MsmRecorder:
             self.folds.append((planes, out))
             return out
 
-        pscan.flush_scan_jac_words, pfold.sum_rows_words = rec_scan, rec_fold
+        (pscan.flush_scan_affine_words, pscan.flush_scan_jac_words,
+         pfold.sum_rows_words, pippenger._stream_info) = (
+            rec_affine, rec_scan, rec_fold, rec_info)
         return self
 
     def __exit__(self, *exc):
-        pscan.flush_scan_jac_words, pfold.sum_rows_words = self._saved
+        (pscan.flush_scan_affine_words, pscan.flush_scan_jac_words,
+         pfold.sum_rows_words, pippenger._stream_info) = self._saved
 
 
 def _point_pool(n_pool):
@@ -371,24 +502,15 @@ def phase_kernels():
     flags = (torch.rand((r_rows, g, cdim), generator=g_torch) < 0.025).to(DEV)
     flags[0] = True
     planes = [pscan.stream_to_planes(t) for t in (sx, sy, sval, flags)]
-
-    def run_affine():
-        return pscan.flush_scan_affine_words(*planes)
-
-    out = run_affine()
-    sync()
-    got = tuple(pscan.pieces_from_planes(
-        torch.cat([out[i], out[3 + i][None]], dim=0), g, cdim) for i in range(3))
-    ref, plain2 = wall_ms(
-        lambda: pscan.flush_scan_plain((sx, sy, sval), flags, affine=True))
-    if not all(_eq(a, b) for a, b in zip(got, ref)):
-        raise AssertionError("flush_scan_affine != plain version")
-    ms2 = time_ms(run_affine, reps=3)
-    b2, by2 = flush_scan_affine_bound(r_rows, ct)
-    res["flush_scan_affine"] = dict(
-        ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
-        max_abs_err=_max_abs_err(got, ref), shape=f"R={r_rows}, columns={ct}")
-    del out, planes, sx, sy, idx
+    latency = field_chain.product_latency_us(FQ, DEV)
+    res["flush_scan_affine"], got = _scan_affine_case(planes, latency)
+    ref = tuple(t.reshape(r_rows + 1, g, cdim, 16) for t in got)
+    # the worst case for the segment split: flags only at row 0, so that
+    # every column is one segment of all R rows
+    planes[3] = torch.zeros_like(planes[3])
+    planes[3][0] = 1
+    res["flush_scan_affine"]["one_segment"], _ = _scan_affine_case(planes, latency)
+    del planes, sx, sy, idx
 
     # Jacobian stream: the affine scan's pieces (zero rows = infinity among
     # them), as the compaction round feeds them back, plus one ragged column
@@ -941,6 +1063,9 @@ def phase_wnn(srs):
         raise AssertionError("the proof's public scores != predict")
     if proof1 != proof2:
         raise AssertionError("equal seeds gave different WNN proof bytes")
+    if hashlib.sha256(proof2).hexdigest() != WNN_PROOF_SHA256:
+        raise AssertionError(f"WNN proof SHA-256 {hashlib.sha256(proof2).hexdigest()} "
+                             f"!= {WNN_PROOF_SHA256}")
     if not ok:
         raise AssertionError("WNN proof did not verify")
     bad = bytearray(proof2)
@@ -993,15 +1118,68 @@ def phase_wnn(srs):
     return launches, rec
 
 
+def _path_affine(rec):
+    """Kernel 2 on the operands of every launch of the warm WNN proof: each
+    timed again, its segments, the work it needs and where bucket 0 sits;
+    the launch with the longest segment held against the plain version limb
+    for limb, and its recorded output against a rerun."""
+    if not rec.affine:
+        raise AssertionError("the warm WNN proof launched no flush_scan_affine")
+    latency = field_chain.product_latency_us(FQ, DEV)
+    runs = [_scan_affine_case(planes, latency, check=False, buckets=buckets)[0]
+            for planes, _, buckets in rec.affine]
+    pick = max(range(len(runs)), key=lambda i: (
+        runs[i]["longest_segment"], runs[i]["required_adds"]))
+    planes, kernel_out, _ = rec.affine[pick]
+    checked, _ = _scan_affine_case(planes, latency)
+    again = pscan.flush_scan_affine_words(*planes)
+    if not all(_eq(a, b) for a, b in zip(kernel_out, again)):
+        raise AssertionError("flush_scan_affine: the recorded launch and its "
+                             "rerun differ")
+
+    def total(key):
+        return sum(r[key] for r in runs)
+
+    return dict(
+        launches_per_proof=len(runs), ms_per_proof=total("ms"),
+        max_launch_ms=max(r["ms"] for r in runs),
+        bound_ms_per_proof=total("bound_ms"),
+        bound_all_rows_ms_per_proof=total("bound_all_rows_ms"),
+        chain_floor_ms_per_proof=total("chain_floor_ms"),
+        product_latency_us=latency,
+        valid_share=total("valid_rows") / total("all_rows_adds"),
+        flag_share=sum(r["flag_share"] * r["all_rows_adds"] for r in runs)
+        / total("all_rows_adds"),
+        required_adds=total("required_adds"), all_rows_adds=total("all_rows_adds"),
+        longest_segment=max(r["longest_segment"] for r in runs),
+        longest_chain=max(r["longest_chain"] for r in runs),
+        one_segment_columns=total("one_segment_columns"),
+        bucket0_row_share=sum(r["bucket0_row_share"] * r["all_rows_adds"] for r in runs)
+        / total("all_rows_adds"),
+        bucket0_adds_share=sum(r["bucket0_adds_share"] * r["required_adds"]
+                               for r in runs) / max(1, total("required_adds")),
+        longest_segment_nonzero_bucket=max(r["longest_segment_nonzero_bucket"]
+                                           for r in runs),
+        longest_chain_nonzero_bucket=max(r["longest_chain_nonzero_bucket"]
+                                         for r in runs),
+        checked_launch=dict(index=pick, shape=checked["shape"],
+                            plain_ms=checked["plain_ms"],
+                            max_abs_err=checked["max_abs_err"],
+                            longest_segment=checked["longest_segment"]),
+        launches=[{k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in r.items()} for r in runs])
+
+
 def phase_path_kernels(rec):
-    """Kernels 3 and 4 on the operands of the warm WNN proof (every launch
+    """Kernels 2-4 on the operands of the warm WNN proof (every launch
     recorded by `rec`): each launch timed again, the work it needs, and the
-    launch with the longest chain of required adds held against the plain
-    version limb for limb (its pieces are sorted, with long identity runs)."""
-    out = {}
+    launch with the longest chain of required adds (kernel 2: the longest
+    segment) held against the plain version limb for limb (its pieces are
+    sorted, with long identity runs)."""
+    out = {"flush_scan_affine": _path_affine(rec)}
     scans = []
     for planes, _ in rec.scans:
-        res = _fold_work(planes[2], planes[3])
+        res = _fold_work(_nonidentity(planes[2]), planes[3])
         res["ms"] = time_ms(lambda: pscan.flush_scan_jac_words(*planes), reps=3)
         r, _, ct = planes[0].shape
         res.update(_scan_jac_bounds(r, ct, res))
@@ -1102,7 +1280,8 @@ def main():
             on_main_path=name != "field_binop" and not bench)
         if bench:
             row["launches_path"] = "bench"
-        for key in ("dense", "us_per_add", "us_per_product",
+        for key in ("dense", "one_segment", "us_per_add", "us_per_product",
+                    "longest_segment", "valid_share", "flag_share",
                     "bound_all_rows_ms", "required_adds", "identity_share",
                     "ms_wide", "wide_shape", "wide_over_narrow", "bound_wide_ms",
                     "chain_floor_ms", "carried_floor_ms", "plain_rows",

@@ -3,18 +3,22 @@ plain versions, limb for limb.
 
 ``zerog_tpu_torch/csrc/*.cu`` also builds with ``g++ -x c++``: every exported
 C function then runs the kernel's per-thread function over all threads in a
-loop (``flush_scan_jac``: every (row slice, column) pair; ``sum_rows``:
-every lane of every job). That tests the control logic of the kernels — the
-segment split of the Jacobian scan, the identity skips, the job table of
-``sum_rows`` — on the CPU, and the measuring kernels of ``csrc/bench.cu``
-(``field_chain``, the four ``scan_bisect`` bodies) against their plain
-versions. The field arithmetic of the host build is the C
-body, not the card's PTX; the card's check is ``chip_smoke.py``. The plain
-versions are held on the same inputs against ``zerog_tpu``'s plain XLA paths
-(``_flush_scan(..., pallas=False)``, ``_pipv2_sum_rows``): all cases in one
-call each, every case padded with unflagged (0, 0, 0) rows, which leave a
-carry as it is. Inputs come from a seeded generator; exact arithmetic,
-tolerance zero.
+loop (``flush_scan_affine``: every (row slice, column) item, a group of one
+thread; ``flush_scan_jac``: every (row slice, column) pair; ``sum_rows``:
+every lane of every job; ``scan_bisect`` ``trivial``: every word lane, its
+chunk totals first, then the running sums from each chunk's offset). That
+tests the control logic of the kernels — the segment walks of both scans,
+the mixed add's levels overlapped across rows, the identity cases, the job
+table of ``sum_rows``, the chunk and tile edges of ``trivial`` — on the CPU,
+and the measuring kernels of ``csrc/bench.cu`` (``field_chain``, the four
+``scan_bisect`` bodies) against their plain versions. The field arithmetic
+of the host build is the C body, not the card's PTX, and the card's work
+queues and row staging are not in it; the card's check is
+``chip_smoke.py``. The plain versions are held on the same inputs against
+``zerog_tpu``'s plain XLA paths (``_flush_scan(..., pallas=False)``,
+``_pipv2_sum_rows``): all cases in one call each, every case padded with
+unflagged rows that leave a carry as it is ((0, 0, 0), or invalid). Inputs
+come from a seeded generator; exact arithmetic, tolerance zero.
 
 Build by hand (what the fixture does):
 
@@ -208,6 +212,113 @@ def test_flush_scan_jac_host_build_matches_plain(host_lib, pool, scan_reference,
         assert torch.equal(b, j)
 
 
+def _affine_case(name, rng):
+    """(R, C, valid [R, C], flags [R, C]) of one affine-scan case."""
+    if name in ("row0_flagged", "row0_unflagged"):
+        r, c = 70, 5
+        valid = rng.random((r, c)) >= 0.15
+        flags = rng.random((r, c)) < 0.1
+        flags[0] = name == "row0_flagged"
+    elif name == "segment_across_slices":
+        r, c = 3 * SLICE + 6, 4
+        valid = rng.random((r, c)) >= 0.1
+        flags = np.zeros((r, c), bool)
+        flags[3, 0] = flags[r - 1, 0] = True          # rows 3 .. r-2: 3 slices
+        flags[SLICE - 1, 1] = flags[SLICE, 1] = True  # flags at a slice edge
+        flags[0, 2] = flags[2 * SLICE + 1, 2] = True  # one segment, slices 0-2
+        flags[5, 3] = True                            # to the column's end
+    elif name == "segment_fills_column":
+        r, c = 96, 3
+        valid = rng.random((r, c)) >= 0.05
+        flags = np.zeros((r, c), bool)                # column 0 from the identity
+        flags[0, 1:] = True                           # columns 1-2 from row 0
+        valid[:5, 2] = False                          # ... which starts blank
+    elif name == "flag_on_invalid":
+        r, c = 70, 4
+        flags = rng.random((r, c)) < 0.15
+        valid = rng.random((r, c)) >= 0.2
+        valid &= ~(flags & (rng.random((r, c)) < 0.6))
+        flags[0, :2] = True
+        valid[0, :3] = False
+    elif name == "invalid_rows_in_run":
+        r, c = 70, 4
+        flags = np.zeros((r, c), bool)
+        flags[[0, 40], 0] = True
+        flags[[10, 50], 1] = True
+        valid = rng.random((r, c)) >= 0.5
+        valid[10:14, 1] = False                       # the run starts blank
+        valid[20:60, 3] = False
+    elif name == "ragged":
+        r, c = SLICE + 13, 23
+        valid = rng.random((r, c)) >= 0.3
+        flags = rng.random((r, c)) < 0.08
+    elif name == "rows_not_multiple_of_slice":
+        r, c = 2 * SLICE + 7, 6
+        valid = rng.random((r, c)) >= 0.1
+        flags = rng.random((r, c)) < 0.05
+        flags[r - 1, 0] = flags[2 * SLICE, 1] = True  # flags in the short slice
+    else:                                             # one_row
+        r, c = 1, 6
+        valid = np.array([[True, False, True, False, True, True]])
+        flags = np.array([[True, True, False, False, True, False]])
+    return r, c, valid, flags
+
+
+AFFINE_CASES = ["row0_flagged", "row0_unflagged", "segment_across_slices",
+                "segment_fills_column", "flag_on_invalid", "invalid_rows_in_run",
+                "ragged", "rows_not_multiple_of_slice", "one_row"]
+
+
+def _affine_inputs(pool, case):
+    """(stream (x, y, valid) [R, 1, C, 16] and [R, 1, C], flags [R, 1, C]) of
+    one case. Points come from 6 affine points of the pool, so that a point
+    often meets itself: the incomplete add then gives a carry whose z is 0,
+    which the next valid row replaces."""
+    rng = np.random.default_rng(AFFINE_CASES.index(case) + 200)
+    r, c, valid, flags = _affine_case(case, rng)
+    idx = torch.from_numpy(rng.integers(0, 6, (r, 1, c)))
+    pts = tuple(comp[idx] for comp in pool[:2])       # z = 1: the affine ones
+    return (pts + (torch.from_numpy(valid).reshape(r, 1, c),),
+            torch.from_numpy(flags).reshape(r, 1, c))
+
+
+@pytest.fixture(scope="module")
+def affine_reference(pool):
+    """zerog_tpu's plain affine flush scan of every case, in one call, as
+    ``scan_reference`` (padding rows are invalid and unflagged: no-ops)."""
+    inputs = [_affine_inputs(pool, case) for case in AFFINE_CASES]
+    assert max(f.shape[0] for _, f in inputs) <= REF_ROWS
+    stream = tuple(_to_jax(torch.cat([_pad_rows(s[i], REF_ROWS) for s, _ in inputs],
+                                     dim=2)) for i in range(2))
+    stream += (jnp.asarray(torch.cat([_pad_rows(s[2], REF_ROWS) for s, _ in inputs],
+                                     dim=2).numpy()),)
+    flags = jnp.asarray(torch.cat([_pad_rows(f, REF_ROWS) for _, f in inputs],
+                                  dim=2).numpy())
+    ref = jpp._flush_scan(stream, flags, affine=True, pallas=False)
+    per_case = _split_lanes(ref, [f.shape[2] for _, f in inputs])
+    return {case: tuple(torch.cat([a[:f.shape[0]], a[-1:]]) for a in pieces)
+            for case, (_, f), pieces in zip(AFFINE_CASES, inputs, per_case)}
+
+
+@pytest.mark.parametrize("case", AFFINE_CASES)
+def test_flush_scan_affine_host_build_matches_plain(host_lib, pool, affine_reference,
+                                                    case):
+    stream, flags_t = _affine_inputs(pool, case)
+    r, _, c = flags_t.shape
+    planes = [pscan.stream_to_planes(t) for t in stream + (flags_t,)]
+    pieces = [torch.empty_like(planes[0]) for _ in range(3)]
+    carry = [torch.empty((8, c), dtype=torch.int32) for _ in range(3)]
+    code = host_lib.zg_flush_scan_affine(
+        *(t.data_ptr() for t in planes + pieces + carry), r, c, None)
+    assert code == 0
+    got = tuple(pscan.pieces_from_planes(torch.cat([p, q[None]], dim=0), 1, c)
+                for p, q in zip(pieces, carry))
+    ref = pscan.flush_scan_plain(stream, flags_t, affine=True)
+    for a, b, j in zip(got, ref, affine_reference[case]):
+        assert torch.equal(a, b)
+        assert torch.equal(b, j)
+
+
 def _fold_job(pool, rng, l, c, blank):
     ident = rng.random((l, c)) < blank
     ident[:, 0] = True                                 # an all-identity lane
@@ -292,4 +403,34 @@ def test_bench_kernels_host_build_match_plain(host_lib, kernel):
                                    r, c, None) == 0
     ref = scan_bisect.scan_bisect_plain(body, kernels.from_word_planes(sx),
                                         kernels.from_word_planes(sy), flags.bool())
+    assert torch.equal(kernels.from_word_planes(out), ref)
+
+
+TRIVIAL_CASES = {
+    "one_row": (1, 5),
+    "rows_not_multiple_of_chunk": (45, 7),      # chunks of 32 rows
+    "two_tiles": (545, 3),                      # tiles of 16 chunks, 512 rows
+    "words_wrap": (64, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(TRIVIAL_CASES))
+def test_scan_bisect_trivial_host_build_chunks(host_lib, case):
+    """The chunked running word sum of zg_scan_bisect's ``trivial`` body
+    against its plain version and ``torch.cumsum``: a lone row, a partial
+    chunk, a second tile, words near 2^32 that wrap."""
+    r, c = TRIVIAL_CASES[case]
+    rng = np.random.default_rng(list(TRIVIAL_CASES).index(case) + 30)
+    words = rng.integers(0, 1 << 32, (r, 8, c), dtype=np.uint64)
+    if case == "words_wrap":
+        words = (1 << 32) - 1 - (words & 0xFF)
+    sx = torch.from_numpy(words.astype(np.uint32).view(np.int32))
+    flags = torch.zeros((r, c), dtype=torch.uint8)
+    out = torch.empty_like(sx)
+    assert host_lib.zg_scan_bisect(scan_bisect.BODIES.index("trivial"), sx.data_ptr(),
+                                   sx.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                                   r, c, None) == 0
+    assert torch.equal(out, torch.cumsum(sx, 0, dtype=torch.int32))
+    lx = kernels.from_word_planes(sx)
+    ref = scan_bisect.scan_bisect_plain("trivial", lx, lx, flags.bool())
     assert torch.equal(kernels.from_word_planes(out), ref)

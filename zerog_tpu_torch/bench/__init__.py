@@ -22,7 +22,7 @@ import torch
 
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_INT32_MAD_PER_S", "MADS_PER_MUL",
            "random_words", "time_ms", "wall_ms", "bound",
-           "flush_scan_affine_bound", "gpu_line"]
+           "flush_scan_affine_bound", "segment_ids", "gpu_line"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
 # memory; 67 TFLOP/s float32 outside the tensor cores = 33.5e12 fused
@@ -82,12 +82,25 @@ def bound(nbytes, mads):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def flush_scan_affine_bound(rows, cols):
-    """bound() of one ``flush_scan_affine`` launch over R x C: x, y, the
-    valid and flag bytes of every row read, the three output words written
-    every row and the carry's once; one mixed add (11 products) a row."""
-    return bound(rows * cols * (2 * 32 + 2 + 3 * 32) + 3 * 32 * cols,
-                 rows * cols * 11 * MADS_PER_MUL)
+def flush_scan_affine_bound(rows, cols, valid_rows=None, adds=None):
+    """bound() of one ``flush_scan_affine`` launch over R x C: the valid and
+    flag bytes of every row read and x, y of `valid_rows` rows, the three
+    output words written every row and the carry's once; one mixed add (11
+    products) for each of `adds`. Both default to every row."""
+    n = rows * cols
+    valid_rows = n if valid_rows is None else valid_rows
+    adds = n if adds is None else adds
+    return bound(n * (2 + 3 * 32) + 2 * 32 * valid_rows + 3 * 32 * cols,
+                 adds * 11 * MADS_PER_MUL)
+
+
+def segment_ids(flags):
+    """Flush flags [R, C] -> int64 [R, C]: one id a (column, segment), below
+    (R + 1) C. A segment of a flush scan runs from row 0 or a flagged row up
+    to the next flag."""
+    r, c = flags.shape
+    seg = torch.cumsum(flags.to(torch.int64), dim=0)
+    return seg + (r + 1) * torch.arange(c, device=flags.device)[None, :]
 
 
 def gpu_line() -> str:

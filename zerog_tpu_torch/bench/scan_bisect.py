@@ -3,13 +3,17 @@ bodies, their plain version, and the bisection of ``flush_scan_affine``'s
 time.
 
 Counterpart of ``scripts/bench_pscan_bisect.py``, which bisects the TPU
-flush scan. What is bisected here is the port's kernel 2
-(``flush_scan_affine``, ``csrc/flush_scan.cu``): the same structure — one
+flush scan. What is bisected here is the first design of the port's kernel
+2 (``flush_scan_affine``, ``csrc/flush_scan.cu``): its structure — one
 thread a column, one warp a block, the R rows walked in order — with four
 bodies, one kernel each. Every row writes the carry's x.
 
 - ``trivial``: the carry is the running sum of the rows, word by word mod
-  2^32, from 0.
+  2^32, from 0. Its kernel has a design of its own: the sum is exact in any
+  grouping, so a thread owns one of the 8 C word lanes, and chunks of 32
+  rows are loaded together and joined by a prefix of their totals. It
+  reads the memory floor of a scan over this layout with its rows in
+  flight, against ``torch.cumsum`` (the same function).
 - ``mul_smem``: carry <- carry * x_r (Fq, Montgomery) from carry = x_0, the
   carry written to shared memory and read back every row (the TPU's
   scratch).
@@ -48,10 +52,11 @@ bodies ``k_trivial``, ``k_mul``, ``k_mul_reg`` and ``k_madd`` of
 ``scripts/bench_pscan_bisect.py`` (``run``). ``trivial`` is bound by bytes
 (64 R C: a row read, the carry written), the two ``mul`` bodies by bytes as
 well (their 128 R C multiply-adds take less), ``madd`` by operations (11 x
-128 R C multiply-adds), like kernel 2. The design is kernel 2's on purpose:
-with one chain of dependent work a column and only a few thousand columns
-in flight, each body shows how much of that structure's time its own work
-explains.
+128 R C multiply-adds). The design of the three product bodies is kernel
+2's first one on purpose: with one chain of dependent work a column and
+only a few thousand columns in flight, each body shows how much of that
+structure's time its own work explains. ``trivial``, whose chain is a sum
+that may be regrouped, loads its rows together instead.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ from ..curve.pscan import flush_scan_affine_words
 from ..device import resolve_device
 from ..field import FQ, jfq
 from . import (MADS_PER_MUL, bound, flush_scan_affine_bound, gpu_line,
-               random_words, time_ms, wall_ms)
+               random_words, segment_ids, time_ms, wall_ms)
 from .field_chain import product_latency_us
 
 __all__ = ["BODIES", "scan_bisect", "scan_bisect_words", "scan_bisect_plain",
@@ -208,10 +213,13 @@ def run(device):
     flags = torch.from_numpy((rng.random((rows, cols)) < 0.025).astype(np.uint8))
     affine = (narrow_in[0], narrow_in[1], valid.to(device), flags.to(device))
     bms, by = flush_scan_affine_bound(rows, cols)
+    # its segments do not depend on each other: the floors count the longest
+    longest = int(torch.bincount(segment_ids(flags).reshape(-1)).max())
     res["flush_scan_affine"] = dict(
         shape=f"R={rows}, columns={cols}", bound_ms=bms, bound_by=by,
         ms=time_ms(lambda: flush_scan_affine_words(*affine), reps=3),
-        **_floors(rows, PRODUCTS["madd"], CARRIED_PRODUCTS["madd"], latency))
+        longest_segment=longest,
+        **_floors(longest, PRODUCTS["madd"], CARRIED_PRODUCTS["madd"], latency))
     return dict(product_latency_us=latency, bodies=res), (narrow_in, outs)
 
 

@@ -475,6 +475,15 @@ ZG_HD Jac jac_select(bool c, const Jac& a, const Jac& b) {
     return r;
 }
 
+// The affine point (qx, qy) as a Jacobian carry: z = 1 if valid, else 0.
+ZG_HD Jac jac_from_affine(const Fe& qx, const Fe& qy, bool qvalid) {
+    Jac q;
+    q.x = qx;
+    q.y = qy;
+    q.z = qvalid ? fe_one<0>() : fe_zero();
+    return q;
+}
+
 // Mixed Jacobian + affine incomplete add (8M + 3S); mirrors
 // jpoints.jac_madd_incomplete, select order included.
 ZG_HD Jac jac_madd_incomplete(const Jac& p, const Fe& qx, const Fe& qy, bool qvalid) {
@@ -491,11 +500,7 @@ ZG_HD Jac jac_madd_incomplete(const Jac& p, const Fe& qx, const Fe& qy, bool qva
     res.x = fe_sub<0>(fe_sub<0>(rr, hhh), fe_add<0>(v, v));
     res.y = fe_sub<0>(fe_mul<0>(r, fe_sub<0>(v, res.x)), fe_mul<0>(p.y, hhh));
     res.z = fe_mul<0>(p.z, h);
-    Jac q;
-    q.x = qx;
-    q.y = qy;
-    q.z = qvalid ? fe_one<0>() : fe_zero();
-    res = jac_select(fe_is_zero(p.z), q, res);
+    res = jac_select(fe_is_zero(p.z), jac_from_affine(qx, qy, qvalid), res);
     return jac_select(qvalid, res, p);
 }
 

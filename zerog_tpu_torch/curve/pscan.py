@@ -19,19 +19,21 @@ the sequential row axis is the grid's inner axis and the carry lives in
 scratch memory between grid steps; on this card blocks run in no order. The
 stream is laid out ``[R, word, column]`` so a warp's loads and stores
 coalesce, and the ragged edge is masked instead of padding rows to 8 and
-columns to 1,024. The affine scan gives one thread a column, which loops
-over all R rows with the carry in registers: with only a few thousand
-columns it is bounded by the chain of dependent products down a column. The
-Jacobian scan cuts each column at its flush flags into segments, which do
-not depend on each other (a flagged row restarts the carry from its point,
-bit for bit), and gives a group of four threads each slice of 32 rows of a
-column: it folds the segments that start in its slice, past the slice if
-need be, the four threads sharing the products of each add, and takes the
-identity cases of the add (a row or a carry whose z is 0) without computing
-a product — the selects of the incomplete add, taken first, so every limb
-equals the plain scan's. It is bounded by the longest chain of adds one
-segment really needs (on a proof's compaction round, the pieces of one
-bucket, up to ~320), not by R full adds a column.
+columns to 1,024. Both scans cut each column at its flush flags into
+segments, which do not depend on each other (a flagged row restarts the
+carry from its point, bit for bit), and give a group of four threads each
+slice of 32 rows of a column: it folds the segments that start in its
+slice, past the slice if need be, the four threads sharing the products of
+each add. The identity cases of the add (a row or a carry whose z is 0; an
+invalid affine point) are the incomplete add's selects, so every limb
+equals the plain scan's. Both are bounded by the longest chain of adds one
+segment needs, not by R adds a column. The affine scan runs the mixed add's
+11 products as three rounds a row (a row's first two levels beside the row
+before's last two), stages its rows 32 at a time in shared memory, and
+keeps the groups of a warp in step; a proof's streams hold segments of all
+1,024 rows, so a launch takes ~1,024 x 2.4 us on the H100. The Jacobian
+scan takes an identity row without a product; on a proof's compaction
+round its chain is one bucket's pieces, up to ~320.
 """
 
 from __future__ import annotations
