@@ -18,20 +18,26 @@ seeds give equal bytes, engine and butterflies give equal bytes).
 
 ``flush_scan_affine`` is also held and timed with flags only at row 0
 (``one_segment``: every column one segment of all R rows, the worst case
-for its segment split). ``flush_scan_jac`` and ``sum_rows`` are also held
-and timed on dense inputs (no identity row, so no add can be skipped).
-Kernels 2-4 are timed again on the operands of every launch of the warm
-WNN proof (``path_kernels`` line: the launches recorded during that proof,
-the share of identity or invalid rows, the adds really required and the
-longest chain of them, and the launch with the longest chain held against
-the plain version; kernel 2 also its segments — the longest, the columns
-that are one segment, its chain floor — and, from each launch's bucket
-keys, where bucket 0 sits). Their ``bound_ms`` counts the bytes and adds
-that the operands require (x and y of a row are read and an add computed
-only where the row is valid, not the identity, and not the first of its
-segment); ``bound_all_rows_ms`` reads every row and counts an add for every
-row. The warm WNN proof's SHA-256 is asserted: a kernel change must leave
-the proof's bytes as they were.
+for its segment split). ``flush_scan_jac``, ``sum_rows`` and
+``weighted_fold`` are also held and timed on dense inputs (no identity
+row, so no add can be skipped). Kernels 2-5 are timed again on the
+operands of every launch of the warm WNN proof (``path_kernels`` line: the
+launches recorded during that proof, the share of identity or invalid
+rows, the adds really required and the longest chain of them, and the
+launch with the longest chain — for ``weighted_fold`` the most rows that
+are not the identity — held against the plain version, its recorded
+output against a rerun; kernel 2 also its segments — the longest, the
+columns that are one segment, its chain floor — and, from each launch's
+bucket keys, where bucket 0 sits; kernel 5 also the rows before each
+lane's first that is not the identity, which cost no product). Their
+``bound_ms`` counts the bytes and adds that the operands require (x and y
+of a row are read and an add computed only where the row is valid, not the
+identity, and not the first of its segment); ``bound_all_rows_ms`` reads
+every row and counts an add for every row. The ``ntt`` line gives each
+level's epilogue time beside its bound (``bound_share``). Times are the
+card's, by CUDA events behind a spin (``bench.time_ms``), so a short
+kernel's time leaves out the host's wrappers. The warm WNN proof's SHA-256
+is asserted: a kernel change must leave the proof's bytes as they were.
 
 The ``bench`` phase drives the two measuring kernels through their
 benchmarks' entry points (``zerog_tpu_torch.bench``): ``field_chain``, 16
@@ -226,6 +232,55 @@ def _sum_rows_bounds(jobs, work):
                        sum(l * c * 96 + 96 * c for l, c in lanes), work)
 
 
+def _weighted_work(z):
+    """What one weighted fold needs, read from the z planes [K, 8, C] of its
+    rows (k = K-1 .. 0): a lane's a1 stays the identity up to and including
+    its first row that is not, so neither add of those rows computes a
+    product; after it each row's a2 + a1 does, and its a1 + row where the row
+    is not the identity. The longest chain is the most rows of a lane with
+    an add."""
+    nz = _nonidentity(z)
+    k, c = nz.shape
+    rows = torch.arange(k, device=z.device)[:, None]
+    first = torch.where(nz, rows, k).min(dim=0).values      # k: no such row
+    after = rows > first[None, :]
+    return dict(identity_share=1.0 - float(nz.float().mean()),
+                nonidentity_rows=int(nz.sum()),
+                leading_identity_share=float(first.sum()) / (k * c),
+                leading_identity_rows_min=int(first.min()),
+                required_adds=int(after.sum()) + int((after & nz).sum()),
+                longest_chain=int((k - 1 - first).clamp(min=0).max()),
+                all_rows_adds=2 * k * c)
+
+
+def _weighted_case(planes, check=True):
+    """`planes`: rows x, y, z [K, 8, C] (k = K-1 .. 0) and the bias x, y, z
+    [8, C]. Launch ``weighted_fold``, hold it against the plain version limb
+    for limb (if `check`), time it, and count the work its rows need. Its
+    bound reads z of every row and x, y of the rows that are not the
+    identity, the bias and the result once."""
+    out = pfold.weighted_fold_words(*planes)
+    sync()
+    k, _, c = planes[0].shape
+    res = _weighted_work(planes[2])
+    if check:
+        st = tuple(kernels.from_word_planes(p).reshape(k, c, 1, 16) for p in planes[:3])
+        bias = tuple(kernels.from_word_planes(p).reshape(c, 1, 16) for p in planes[3:])
+        ref, res["plain_ms"] = wall_ms(lambda: pfold.weighted_plain(st, bias))
+        got = tuple(kernels.from_word_planes(o).reshape(c, 1, 16) for o in out)
+        if not all(_eq(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"weighted_fold K={k} lanes={c} != plain version")
+        res["max_abs_err"] = _max_abs_err(got, ref)
+    res["ms"] = time_ms(lambda: pfold.weighted_fold_words(*planes))
+    # a row's two adds run side by side: the row is the chain's step
+    res["us_per_row"] = res["ms"] * 1e3 / k
+    res["us_per_add"] = res["ms"] * 1e3 / (2 * k)
+    res.update(_add_bounds(k * c * 32 + 64 * res["nonidentity_rows"] + 2 * 96 * c,
+                           k * c * 96 + 2 * 96 * c, res))
+    res["shape"] = f"K={k} x lanes={c}"
+    return res
+
+
 def _affine_work(valid, flags, buckets=None):
     """What one affine flush scan needs, read from its operands: valid and
     flags uint8 [R, C]. Returns the valid and flag shares, the valid rows,
@@ -375,18 +430,19 @@ def _sum_rows_case(jobs, check=True):
 
 class _MsmRecorder:
     """Records the operands and results of every ``flush_scan_affine``,
-    ``flush_scan_jac`` and ``sum_rows`` launch while it is active (the
-    wrappers count their launches by kernel name, so the counts are
-    unaffected). Each affine launch is paired with the ``_stream_info`` call
+    ``flush_scan_jac``, ``sum_rows`` and ``weighted_fold`` launch while it is
+    active (the wrappers count their launches by kernel name, so the counts
+    are unaffected). Each affine launch is paired with the ``_stream_info`` call
     whose flags it scans, for the bucket of every row: the stream's sorted
     digit keys, column-major."""
 
     def __enter__(self):
-        self.affine, self.scans, self.folds = [], [], []
+        self.affine, self.scans, self.folds, self.weighted = [], [], [], []
         self._infos = []
         self._saved = (pscan.flush_scan_affine_words, pscan.flush_scan_jac_words,
-                       pfold.sum_rows_words, pippenger._stream_info)
-        affine, scan, fold, info = self._saved
+                       pfold.sum_rows_words, pfold.weighted_fold_words,
+                       pippenger._stream_info)
+        affine, scan, fold, weighted, info = self._saved
 
         def rec_info(keys, r_rows, nb):
             out = info(keys, r_rows, nb)
@@ -418,14 +474,20 @@ class _MsmRecorder:
             self.folds.append((planes, out))
             return out
 
+        def rec_weighted(*planes):
+            out = weighted(*planes)
+            self.weighted.append((planes, out))
+            return out
+
         (pscan.flush_scan_affine_words, pscan.flush_scan_jac_words,
-         pfold.sum_rows_words, pippenger._stream_info) = (
-            rec_affine, rec_scan, rec_fold, rec_info)
+         pfold.sum_rows_words, pfold.weighted_fold_words, pippenger._stream_info) = (
+            rec_affine, rec_scan, rec_fold, rec_weighted, rec_info)
         return self
 
     def __exit__(self, *exc):
         (pscan.flush_scan_affine_words, pscan.flush_scan_jac_words,
-         pfold.sum_rows_words, pippenger._stream_info) = self._saved
+         pfold.sum_rows_words, pfold.weighted_fold_words,
+         pippenger._stream_info) = self._saved
 
 
 def _point_pool(n_pool):
@@ -542,32 +604,6 @@ def phase_kernels():
     res["sum_rows"] = _sum_rows_case(jobs4)
     res["sum_rows"]["shape"] += " (one MSM batch)"
 
-    # -- kernel 5: weighted_fold, K = 128 rows over 16 lanes --------------------
-    k_rows = hi_n
-    pick = torch.randint(0, flat[0].shape[0], (k_rows * g * 2,),
-                         generator=g_torch).to(DEV)
-    st = tuple(t[pick].reshape(k_rows, g, 2, 16) for t in flat)
-    _, bias = pippenger._pip_bias(DEV)
-    pl5 = [pfold._rows_to_planes(t) for t in st] + [
-        kernels.to_word_planes(b.expand(g * 2, 16)) for b in bias]
-    out5 = pfold.weighted_fold_words(*pl5)
-    sync()
-    got5 = tuple(kernels.from_word_planes(o).reshape(g, 2, 16) for o in out5)
-    ref5, plain5 = wall_ms(lambda: pfold.weighted_plain(st, bias))
-    if not all(_eq(a, b) for a, b in zip(got5, ref5)):
-        raise AssertionError("weighted_fold != plain version")
-    ms5 = time_ms(lambda: pfold.weighted_fold_words(*pl5))
-    lanes = g * 2
-    b5, by5 = bound(k_rows * lanes * 96 + 2 * 96 * lanes,
-                    k_rows * lanes * 2 * MULS_ADD * MADS_PER_MUL)
-    # 16 lanes, one warp: each row's two adds are a chain of dependent
-    # products, so the time an add and a product is the latency of one
-    res["weighted_fold"] = dict(
-        ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=by5,
-        max_abs_err=_max_abs_err(got5, ref5), shape=f"K={k_rows} x lanes={lanes}",
-        us_per_add=ms5 * 1e3 / (2 * k_rows),
-        us_per_product=ms5 * 1e3 / (2 * k_rows * MULS_ADD))
-
     # -- dense inputs for kernels 3 and 4: no identity rows at all, so that
     # no row can be skipped (the inputs above are ~97 % identities) ---------
     g_dense = torch.Generator(device="cpu").manual_seed(SEED + 4)
@@ -588,6 +624,19 @@ def phase_kernels():
     res["sum_rows"]["dense"] = _sum_rows_case(
         [tuple(pfold._rows_to_planes(t) for t in dense_pick((l_rows, g, width)))
          for l_rows, width in fold_shapes])
+
+    # -- kernel 5: weighted_fold, K = 128 rows over 16 lanes: rows drawn from
+    # the pieces above (most of them the identity), and dense (none) -------
+    k_rows = hi_n
+    pick = torch.randint(0, flat[0].shape[0], (k_rows * g * 2,),
+                         generator=g_torch).to(DEV)
+    _, bias = pippenger._pip_bias(DEV)
+    bias5 = [kernels.to_word_planes(b.expand(g * 2, 16)) for b in bias]
+    res["weighted_fold"] = _weighted_case(
+        [pfold._rows_to_planes(t[pick].reshape(k_rows, g, 2, 16)) for t in flat]
+        + bias5)
+    res["weighted_fold"]["dense"] = _weighted_case(
+        [pfold._rows_to_planes(t) for t in dense_pick((k_rows, g, 2))] + bias5)
 
     emit(dict(phase="kernel_check", equal_to_plain=True, tolerance=0,
               kernels=res, check_launches=kernels.launch_counts()))
@@ -718,7 +767,8 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
                            f"({'bytes' if out_bytes else 'words'} out)")
         levels_out.append(dict(
             n=n, t=t, lanes=lanes, out="bytes" if out_bytes else "words",
-            epilogue_ms=ms, bound_ms=b_ms, bound_by=b_by, int_mm_ms=mm,
+            epilogue_ms=ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+            int_mm_ms=mm,
             int_mm_shape=f"[{32 * t}, {32 * t}] x [{32 * t}, {lanes}]",
             plain_ms=plain))
         # the with-twiddle variants (not launched by the engine) on the same
@@ -1171,11 +1221,12 @@ def _path_affine(rec):
 
 
 def phase_path_kernels(rec):
-    """Kernels 2-4 on the operands of the warm WNN proof (every launch
+    """Kernels 2-5 on the operands of the warm WNN proof (every launch
     recorded by `rec`): each launch timed again, the work it needs, and the
     launch with the longest chain of required adds (kernel 2: the longest
-    segment) held against the plain version limb for limb (its pieces are
-    sorted, with long identity runs)."""
+    segment; kernel 5: the most rows that are not the identity) held against
+    the plain version limb for limb (its pieces are sorted, with long
+    identity runs), and its recorded output against a rerun."""
     out = {"flush_scan_affine": _path_affine(rec)}
     scans = []
     for planes, _ in rec.scans:
@@ -1184,25 +1235,32 @@ def phase_path_kernels(rec):
         r, _, ct = planes[0].shape
         res.update(_scan_jac_bounds(r, ct, res))
         scans.append(res)
-    folds = []
-    for planes, _ in rec.folds:
-        jobs = [planes[i:i + 3] for i in range(0, len(planes), 3)]
-        folds.append(_sum_rows_case(jobs, check=False))
-    for name, runs, recorded in (("flush_scan_jac", scans, rec.scans),
-                                 ("sum_rows", folds, rec.folds)):
+    folds = [_sum_rows_case([planes[i:i + 3] for i in range(0, len(planes), 3)],
+                            check=False) for planes, _ in rec.folds]
+    weighted = [_weighted_case(planes, check=False) for planes, _ in rec.weighted]
+
+    def check_scan(planes):
+        return _scan_jac_case(planes)[0], pscan.flush_scan_jac_words(*planes)
+
+    def check_fold(planes):
+        return (_sum_rows_case([planes[i:i + 3] for i in range(0, len(planes), 3)]),
+                pfold.sum_rows_words(*planes))
+
+    def check_weighted(planes):
+        return _weighted_case(planes), pfold.weighted_fold_words(*planes)
+
+    chain = ("longest_chain", "required_adds")
+    for name, runs, recorded, check, key in (
+            ("flush_scan_jac", scans, rec.scans, check_scan, chain),
+            ("sum_rows", folds, rec.folds, check_fold, chain),
+            ("weighted_fold", weighted, rec.weighted, check_weighted,
+             ("nonidentity_rows", "required_adds"))):
         if not runs:
             raise AssertionError(f"the warm WNN proof launched no {name}")
-        pick = max(range(len(runs)), key=lambda i: (
-            runs[i]["longest_chain"], runs[i]["required_adds"]))
+        pick = max(range(len(runs)), key=lambda i: tuple(runs[i][k] for k in key))
         planes, kernel_out = recorded[pick]
-        if name == "flush_scan_jac":
-            checked, _ = _scan_jac_case(planes)
-        else:
-            checked = _sum_rows_case(
-                [planes[i:i + 3] for i in range(0, len(planes), 3)])
         # the recorded launch itself gave the same limbs as this check's
-        again = (pscan.flush_scan_jac_words(*planes) if name == "flush_scan_jac"
-                 else pfold.sum_rows_words(*planes))
+        checked, again = check(planes)
         if not all(_eq(a, b) for a, b in zip(kernel_out, again)):
             raise AssertionError(f"{name}: the recorded launch and its rerun differ")
         work = _merge_work(runs)
@@ -1224,6 +1282,17 @@ def phase_path_kernels(rec):
                            longest_chain=r["longest_chain"],
                            identity_share=round(r["identity_share"], 4))
                       for r in runs])
+        if name == "weighted_fold":
+            # a lane's rows before its a1 first leaves the identity cost no
+            # product in either add
+            out[name]["leading_identity_share"] = sum(
+                r["leading_identity_share"] * r["all_rows_adds"] for r in runs) / sum(
+                r["all_rows_adds"] for r in runs)
+            out[name]["leading_identity_rows_min"] = min(
+                r["leading_identity_rows_min"] for r in runs)
+            for r, line in zip(runs, out[name]["launches"]):
+                line.update(leading_identity_share=round(r["leading_identity_share"], 4),
+                            leading_identity_rows_min=r["leading_identity_rows_min"])
     emit(dict(phase="path_kernels", equal_to_plain=True, tolerance=0, **out))
     return out
 
@@ -1280,7 +1349,7 @@ def main():
             on_main_path=name != "field_binop" and not bench)
         if bench:
             row["launches_path"] = "bench"
-        for key in ("dense", "one_segment", "us_per_add", "us_per_product",
+        for key in ("dense", "one_segment", "us_per_add", "us_per_row",
                     "longest_segment", "valid_share", "flag_share",
                     "bound_all_rows_ms", "required_adds", "identity_share",
                     "ms_wide", "wide_shape", "wide_over_narrow", "bound_wide_ms",

@@ -41,11 +41,12 @@ from zerog_tpu.curve import pippenger as jpp
 
 from zerog_tpu_torch import kernels
 from zerog_tpu_torch.bench import field_chain, scan_bisect
-from zerog_tpu_torch.curve import pfold, pscan
+from zerog_tpu_torch.curve import pfold, pippenger, pscan
 from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from zerog_tpu_torch.curve.jpoints import (
     jac_double, jac_from_affine, jac_infinity, points_to_device)
 from zerog_tpu_torch.field import FQ, FR
+from zerog_tpu_torch.poly import pntt
 
 torch.set_num_threads(1)
 
@@ -62,12 +63,7 @@ def host_lib(tmp_path_factory):
     subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
                     *(os.path.join(kernels.CSRC_DIR, f) for f in kernels.SOURCES),
                     "-o", str(out)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in kernels._SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return kernels.load(str(out))
 
 
 @pytest.fixture(scope="module")
@@ -434,3 +430,106 @@ def test_scan_bisect_trivial_host_build_chunks(host_lib, case):
     lx = kernels.from_word_planes(sx)
     ref = scan_bisect.scan_bisect_plain("trivial", lx, lx, flags.bool())
     assert torch.equal(kernels.from_word_planes(out), ref)
+
+
+# ---- weighted_fold ----------------------------------------------------------------
+
+# (K rows, lanes) of each case; rows ordered k = K-1 .. 0 as the MSM gives them
+WEIGHTED_CASES = {
+    "one_row": (1, 16),
+    "eight_rows": (8, 16),
+    "ragged": (13, 5),                  # K and the lanes not multiples of 8
+    "identity_runs": (40, 16),
+}
+
+
+def _weighted_inputs(pool, case):
+    """Rows [K, C, 1, 16] drawn from the pool, with identity rows at row 0 in
+    every lane, a run of them in the middle of some lanes, an all-identity
+    lane and ~30 % more at random; and the MSM's bias point [16] limbs."""
+    k, c = WEIGHTED_CASES[case]
+    rng = np.random.default_rng(list(WEIGHTED_CASES).index(case) + 300)
+    ident = rng.random((k, c)) < 0.3
+    ident[0] = True
+    ident[k // 3:(2 * k) // 3, ::2] = True
+    ident[:, 1] = True
+    rows = _stream(pool, rng, k, c, ident)
+    _, bias = pippenger._pip_bias("cpu")
+    return tuple(t.reshape(k, c, 1, 16) for t in rows), bias
+
+
+@pytest.fixture(scope="module")
+def weighted_reference(pool):
+    """zerog_tpu's weighted fold of every case, in one call: the cases side by
+    side as lanes, padded in front with identity rows (rows of higher k, which
+    leave both accumulators as they are) to the longest. Returns {case:
+    [C, 1, 16] limbs a coordinate}."""
+    inputs = {case: _weighted_inputs(pool, case) for case in WEIGHTED_CASES}
+    k_max = max(k for k, _ in WEIGHTED_CASES.values())
+
+    def pad_front(t):
+        return torch.cat([t.new_zeros((k_max - t.shape[0],) + t.shape[1:]), t])
+
+    stacked = tuple(_to_jax(torch.cat([pad_front(rows[i]) for rows, _ in inputs.values()],
+                                      dim=1)) for i in range(3))
+    bias = next(iter(inputs.values()))[1]
+    ref = jpp._pipv2_weighted(stacked, tuple(_to_jax(b) for b in bias))
+    widths = [c for _, c in WEIGHTED_CASES.values()]
+    return dict(zip(WEIGHTED_CASES, _split_lanes(
+        tuple(np.asarray(a)[:, 0] for a in ref), widths)))
+
+
+@pytest.mark.parametrize("case", list(WEIGHTED_CASES))
+def test_weighted_fold_host_build_matches_plain(host_lib, pool, weighted_reference,
+                                                case):
+    """zg_weighted_fold (a lane's two adds of a row in one thread, identity
+    operands skipped) against ``weighted_plain``, and that against
+    zerog_tpu's ``_pipv2_weighted``, limb for limb."""
+    rows, bias = _weighted_inputs(pool, case)
+    k, c = WEIGHTED_CASES[case]
+    planes = [pfold._rows_to_planes(t) for t in rows] + [
+        kernels.to_word_planes(b.expand(c, 16)) for b in bias]
+    out = [torch.empty((8, c), dtype=torch.int32) for _ in range(3)]
+    assert host_lib.zg_weighted_fold(*(t.data_ptr() for t in planes + out), k, c,
+                                     None) == 0
+    ref = pfold.weighted_plain(rows, bias)
+    for o, b, j in zip(out, ref, weighted_reference[case]):
+        assert torch.equal(kernels.from_word_planes(o), b.reshape(c, 16))
+        assert torch.equal(b.reshape(c, 16), j)
+
+
+# ---- ntt_epilogue -------------------------------------------------------------------
+
+def _epilogue_inputs(t, lanes, seed):
+    """Raw offset accumulator int32 [32, t, lanes], colsum, rowc and a random
+    twiddle (canonical word planes [8, t, lanes]), every corrected column in
+    the real range [0, 32 t 255^2], both extremes included."""
+    rng = np.random.default_rng(seed)
+    top = 32 * t * 255 * 255
+    corr = rng.integers(0, top + 1, (32, t, lanes))
+    corr[:, 0, 0] = top
+    corr[:, 0, 1] = 0
+    colsum = rng.integers(-128 * 32 * t, 127 * 32 * t + 1, lanes)
+    rowc = rng.integers(-(1 << 26), 1 << 26, 32 * t)
+    acc = corr - 128 * colsum[None, None, :] - rowc.reshape(32, t, 1)
+    tw = rng.integers(0, 1 << 32, (8, t, lanes), dtype=np.uint64)
+    tw[7] &= 0x1FFFFFFF
+    return tuple(torch.from_numpy(a.astype(np.int32)) for a in (acc, colsum, rowc)) + (
+        torch.from_numpy(tw.astype(np.uint32).view(np.int32)),)
+
+
+@pytest.mark.parametrize("out_bytes", [True, False], ids=["bytes", "words"])
+@pytest.mark.parametrize("with_twiddle", [False, True], ids=["plain", "twiddle"])
+def test_ntt_epilogue_host_build_matches_plain(host_lib, with_twiddle, out_bytes):
+    """zg_ntt_epilogue, each of its four variants, against ``epilogue_plain``
+    at small t and odd lane counts."""
+    for t, lanes, seed in ((4, 13, 1), (8, 7, 2)):
+        acc, colsum, rowc, tw = _epilogue_inputs(t, lanes, seed)
+        tw = tw if with_twiddle else None
+        out = torch.empty((32, t, lanes), dtype=torch.int8) if out_bytes else \
+            torch.empty((8, t, lanes), dtype=torch.int32)
+        assert host_lib.zg_ntt_epilogue(
+            acc.data_ptr(), colsum.data_ptr(), rowc.data_ptr(),
+            None if tw is None else tw.data_ptr(), out.data_ptr(), t, lanes,
+            int(out_bytes), None) == 0
+        assert torch.equal(out, pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes))

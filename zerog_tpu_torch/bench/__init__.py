@@ -46,9 +46,16 @@ def random_words(rng: np.random.Generator, shape) -> torch.Tensor:
     return torch.from_numpy(w.view(np.int32))
 
 
+# cycles the card spins before each timed run (~1 ms at 1.98 GHz)
+LEAD_CYCLES = 2_000_000
+
+
 def time_ms(fn, reps=5, warm=1):
-    """Median milliseconds of `fn` on the card by CUDA events, after a
-    warm-up."""
+    """Median milliseconds of `fn`'s work on the card by CUDA events, after a
+    warm-up. Each run waits on the card behind a spin of LEAD_CYCLES, so that
+    the host has enqueued its launches before the first event fires: the
+    events time the card's work, not the host's wrappers around it (which
+    take longer than a short kernel)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -56,6 +63,7 @@ def time_ms(fn, reps=5, warm=1):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(LEAD_CYCLES)
         a.record()
         fn()
         b.record()

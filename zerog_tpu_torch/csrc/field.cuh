@@ -117,6 +117,41 @@ __device__ __forceinline__ void zg_add_mad4(uint32_t& x, uint32_t y, uint32_t ac
           "+r"(acc[5]), "+r"(acc[6]), "+r"(acc[7])
         : "r"(y), "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(m));
 }
+
+// t[0..8] += lo(m p_k) at word k for k = 0..7, the carry out of word 7 into
+// word 8 (the low halves of m p).
+__device__ __forceinline__ void zg_mad8_lo(uint32_t t[9], uint32_t m, const uint32_t p[8]) {
+    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
+        "madc.lo.cc.u32 %1, %9, %11, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+        "madc.lo.cc.u32 %3, %9, %13, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %14, %4;\n\t"
+        "madc.lo.cc.u32 %5, %9, %15, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %16, %6;\n\t"
+        "madc.lo.cc.u32 %7, %9, %17, %7;\n\t"
+        "addc.u32 %8, %8, %18;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+          "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+        : "r"(m), "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]), "r"(p[5]),
+          "r"(p[6]), "r"(p[7]), "r"(0u));
+}
+
+// t[1..8] += hi(m p_k) at word k + 1 for k = 0..7 (the high halves of m p);
+// the carry out of word 8 is dropped (the caller knows it is 0).
+__device__ __forceinline__ void zg_mad8_hi(uint32_t t[9], uint32_t m, const uint32_t p[8]) {
+    asm("mad.hi.cc.u32 %0, %8, %9, %0;\n\t"
+        "madc.hi.cc.u32 %1, %8, %10, %1;\n\t"
+        "madc.hi.cc.u32 %2, %8, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %8, %12, %3;\n\t"
+        "madc.hi.cc.u32 %4, %8, %13, %4;\n\t"
+        "madc.hi.cc.u32 %5, %8, %14, %5;\n\t"
+        "madc.hi.cc.u32 %6, %8, %15, %6;\n\t"
+        "madc.hi.u32 %7, %8, %16, %7;"
+        : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+          "+r"(t[7]), "+r"(t[8])
+        : "r"(m), "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]), "r"(p[5]),
+          "r"(p[6]), "r"(p[7]));
+}
 // ---- end of PTX carry chains ----------------------------------------------------
 #endif
 
@@ -403,16 +438,32 @@ ZG_HD Fe fe_mul(const Fe& a, const Fe& b) {
 }
 
 // Montgomery reduction of a 9-word value: v[0..7] the low 256 bits, v[8] the
-// high word. Returns v * 2^-256 mod p, canonical, for v < 2^256 * p (so that
-// (v + m p) / 2^256 < 2p before the one conditional subtract).
+// high word, v[8] < 2^31. Returns v * 2^-256 mod p, canonical ((v + M p) /
+// 2^256 < 2^31 + p < 2p before the one conditional subtract).
 // Word-serial: each step adds m p with m = t[0] * (-p^-1) mod 2^32, which
-// clears the low word, and shifts down by one word. t + m p stays under 2^288,
-// so nine words hold every intermediate.
+// clears the low word, and shifts down by one word. t + m p stays under
+// 2^287 + 2^286 < 2^288 (v[8] < 2^31), so nine words hold every intermediate. On the card a step is two PTX carry
+// chains, the low halves of m p and then the high halves; the shift is a
+// renaming of registers.
 template <int F>
 ZG_HD Fe fe_redc9(const uint32_t v[ZG_NW + 1]) {
     uint32_t t[ZG_NW + 1];
 #pragma unroll
     for (int i = 0; i <= ZG_NW; i++) t[i] = v[i];
+#ifdef __CUDA_ARCH__
+    uint32_t p[ZG_NW];
+#pragma unroll
+    for (int i = 0; i < ZG_NW; i++) p[i] = zg_p<F>(i);
+#pragma unroll
+    for (int i = 0; i < ZG_NW; i++) {
+        const uint32_t m = t[0] * zg_n0<F>();
+        zg_mad8_lo(t, m, p);
+        zg_mad8_hi(t, m, p);
+#pragma unroll
+        for (int j = 0; j < ZG_NW; j++) t[j] = t[j + 1];
+        t[ZG_NW] = 0u;
+    }
+#else
 #pragma unroll
     for (int i = 0; i < ZG_NW; i++) {
         uint32_t m = t[0] * zg_n0<F>();
@@ -428,6 +479,7 @@ ZG_HD Fe fe_redc9(const uint32_t v[ZG_NW + 1]) {
         t[ZG_NW - 1] = (uint32_t)s;
         t[ZG_NW] = (uint32_t)(s >> 32);
     }
+#endif
     // t < 2p < 2^255: the ninth word is 0
     Fe r;
 #pragma unroll

@@ -5,14 +5,24 @@
 // file. Between them each level runs one int8 product (torch._int_mm) whose
 // int32 accumulator is [32 byte columns, t rows, L lanes], row-major.
 //
-// Both are bound by bytes: per element the epilogue reads 128 bytes of
-// accumulator and writes 32 (int8 byte planes or int32 word planes) against
-// 64 multiply-adds of one REDC (+128 with the twiddle); the twiddle pass moves
-// 64 bytes against the 128 multiply-adds of one product. So one thread owns
-// one element, the lane index is the fastest across threads (each of the 32
-// plane loads of a warp is one contiguous line), and each byte is read and
-// written once. The -128 offset correction of the product (128 colsum[lane] +
-// rowc[row]) is added here, not in a separate pass over the accumulator.
+// By the card's peaks both are bound by bytes: per element the epilogue reads
+// 128 bytes of accumulator and writes 32 (int8 byte planes or int32 word
+// planes) against 64 multiply-adds of one REDC (+128 with the twiddle); the
+// twiddle pass moves 64 bytes against the 128 multiply-adds of one product.
+// Each byte is read and written once. The -128 offset correction of the product (128
+// colsum[lane] + rowc[row]) is added here, not in a separate pass over the
+// accumulator.
+//
+// ntt_epilogue: one thread owns one element, the lane index the fastest
+// across threads (each of the 32 plane loads of a warp is one coalesced
+// line); the REDC is PTX carry chains. On this card it reaches ~70 % of its
+// bytes bound at 2^17 and ~50 % at 2^14 (one partial wave): it also issues
+// ~800 instructions an element (the REDC ~40 % of them, the byte carries
+// and the addresses of 64 loads and 32 stores the rest). So an element's
+// columns split over 4 or 8 threads (more loads in flight, but every thread
+// of a group runs the whole REDC) or 2-4 elements a thread (8- or 16-byte
+// loads, packed stores) were slower on the card (PERF.md, PR 7).
+// ntt_twiddle: one thread owns one element.
 #include "field.cuh"
 
 // Element idx = j * lanes + l of a [32, t, lanes] accumulator.

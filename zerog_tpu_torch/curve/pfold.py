@@ -15,18 +15,23 @@ accumulator, which would see structurally equal operands when marginals are
 empty, starts from a fixed bias point that the caller subtracts afterwards.
 
 Kernel note — ``sum_rows`` replaces ``_sum_rows_call`` and ``weighted_fold``
-replaces ``_weighted_call`` of ``zerog_tpu/curve/pfold.py``. One thread owns
-one lane and loops over all rows with its accumulator (two for the weighted
-fold) in registers. Each row costs 16 (or 32) field products for 96 bytes
-read, so both are bound by integer operations; what limits them on this card
-is their width — a few hundred lanes for ``sum_rows`` and 2 * G for
-``weighted_fold`` — and the length of the dependent chain. ``sum_rows``
-shortens the chain: a row or an accumulator whose z is 0 is taken by the
-add's selects without a product (most bucket slots are empty), a group of
-four threads shares the products of each lane's add, and one launch folds
-both fold shapes of an MSM batch (:func:`sum_rows_many`), the longer first.
-There is no chunking of the row axis, so any K is taken (no multiple-of-8
-rule).
+replaces ``_weighted_call`` of ``zerog_tpu/curve/pfold.py``. Each row costs
+16 (or 32) field products for 96 bytes read, and a lane's rows are a chain
+of dependent adds over few lanes (a few hundred for ``sum_rows``, 2 * G =
+16 for ``weighted_fold``): the chain's latency bounds them on this card,
+not bytes or the product rate. A group of four threads shares the products
+of each add, level by level, and a row or an accumulator whose z is 0 is
+taken by the add's selects without a product. ``sum_rows`` also folds both
+fold shapes of an MSM batch in one launch (:func:`sum_rows_many`), the
+longer first; most bucket slots are empty, so its chain is short.
+``weighted_fold`` runs a row's two adds (a2 + a1, a1 + row: both read the
+a1 of the row before) side by side in two groups of a lane's eight threads
+and loads the next row ahead: a row costs one add. Its a2 is a chain of K
+adds whatever the rows hold, so it keeps the serial row order: a log-depth
+tree over the rows would give other limbs than the JAX package's and meet
+structurally equal operands at identity rows, where the incomplete add is
+wrong. There is no chunking of the row axis, so any K is taken (no
+multiple-of-8 rule).
 """
 
 from __future__ import annotations

@@ -29,9 +29,9 @@ import time
 
 import torch
 
-__all__ = ["build", "lib", "register", "launch_counts", "reset_launch_counts",
-           "to_word_planes", "from_word_planes", "check_planes",
-           "current_stream", "BUILD_INFO"]
+__all__ = ["build", "load", "lib", "register", "launch_counts",
+           "reset_launch_counts", "to_word_planes", "from_word_planes",
+           "check_planes", "current_stream", "BUILD_INFO"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -109,27 +109,29 @@ def _parse_ptxas(text: str) -> dict:
     return out
 
 
-def _stale(target: str) -> bool:
+def _stale(target: str, csrc_dir: str) -> bool:
     if not os.path.exists(target):
         return True
     built = os.path.getmtime(target)
-    return any(os.path.getmtime(os.path.join(CSRC_DIR, f)) > built
+    return any(os.path.getmtime(os.path.join(csrc_dir, f)) > built
                for f in SOURCES + HEADERS)
 
 
-def build(force: bool = False) -> str:
-    """Compile ``csrc/*.cu`` into the shared library if it is missing or older
-    than a source; returns its path. Raises on any compiler error."""
-    target = os.path.join(BUILD_DIR, LIB_NAME)
-    if not force and not _stale(target):
+def build(force: bool = False, csrc_dir: str = CSRC_DIR,
+          build_dir: str = BUILD_DIR) -> str:
+    """Compile ``csrc/*.cu`` (or the same sources under `csrc_dir`) into the
+    shared library under `build_dir` if it is missing or older than a source;
+    returns its path. Raises on any compiler error."""
+    target = os.path.join(build_dir, LIB_NAME)
+    if not force and not _stale(target, csrc_dir):
         return target
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     t0 = time.time()
     procs = []
     for src in SOURCES:
-        obj = os.path.join(BUILD_DIR, src.replace(".cu", ".o"))
-        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, src), "-o", obj]
+        obj = os.path.join(build_dir, src.replace(".cu", ".o"))
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(csrc_dir, src), "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     log = []
@@ -154,16 +156,21 @@ def build(force: bool = False) -> str:
     return target
 
 
+def load(path: str):
+    """A built kernel library, its C functions typed by ``_SIGNATURES``."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib():
     """The loaded kernel library (built at first use)."""
     global _LIB
     if _LIB is None:
-        handle = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = handle
+        _LIB = load(build())
     return _LIB
 
 

@@ -40,11 +40,14 @@ One thread per element (row j, lane g, g fastest so that each of the 32
 plane loads of a warp is one coalesced line). It adds the -128 correction
 itself (``colsum``, ``rowc``: the JAX code does that in a separate pass over
 the int32 accumulator), carries the 32 byte columns into 8 words plus a high
-word (< 2^22), does one 9-word Montgomery REDC and one conditional subtract,
-optionally a Montgomery product by a twiddle, and writes int8 byte planes
-(-128 offset) or int32 word planes. Per element it reads 128 bytes and
-writes 32 against 64 multiply-adds (128 more with the twiddle): bound by
-bytes. The design goal is a single coalesced pass.
+word (< 2^22), does one 9-word Montgomery REDC (PTX carry chains) and one
+conditional subtract, optionally a Montgomery product by a twiddle, and
+writes int8 byte planes (-128 offset) or int32 word planes. Per element it
+reads 128 bytes and writes 32 against 64 multiply-adds (128 more with the
+twiddle): bound by bytes, and on the card it also issues ~800 instructions
+an element, so it reaches ~70 % of the bytes bound at 2^17. Splitting an
+element over several threads, or packing several elements into a thread's
+wide loads and stores, measured slower (``csrc/ntt.cu``).
 
 Kernel note — ``ntt_twiddle`` replaces ``_twiddle_call`` of the same file.
 One thread per element: bytes (-128 offset) -> 8 words, a Montgomery
