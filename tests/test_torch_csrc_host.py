@@ -5,19 +5,24 @@ plain versions, limb for limb.
 C function then runs the kernel's per-thread function over all threads in a
 loop (``flush_scan_affine``: every (row slice, column) item, a group of one
 thread; ``flush_scan_jac``: every (row slice, column) pair; ``sum_rows``:
-every lane of every job; ``scan_bisect`` ``trivial``: every word lane, its
-chunk totals first, then the running sums from each chunk's offset). That
-tests the control logic of the kernels — the segment walks of both scans,
-the mixed add's levels overlapped across rows, the identity cases, the job
-table of ``sum_rows``, the chunk and tile edges of ``trivial`` — on the CPU,
+every lane of every job; ``weighted_fold``: every lane, its two adds of a
+row in one thread; ``ntt_epilogue``: every element; ``scan_bisect``
+``trivial``: every word lane, its chunk totals first, then the running sums
+from each chunk's offset). That tests the control logic of the kernels —
+the segment walks of both scans, the mixed add's levels overlapped across
+rows, the identity cases, the job table of ``sum_rows``, the weighted
+fold's rows loaded ahead, the epilogue's carries, REDC and four output
+variants, the chunk and tile edges of ``trivial`` — on the CPU,
 and the measuring kernels of ``csrc/bench.cu`` (``field_chain``, the four
 ``scan_bisect`` bodies) against their plain versions. The field arithmetic
 of the host build is the C body, not the card's PTX, and the card's work
 queues and row staging are not in it; the card's check is
 ``chip_smoke.py``. The plain versions are held on the same inputs against
 ``zerog_tpu``'s plain XLA paths (``_flush_scan(..., pallas=False)``,
-``_pipv2_sum_rows``): all cases in one call each, every case padded with
-unflagged rows that leave a carry as it is ((0, 0, 0), or invalid). Inputs
+``_pipv2_sum_rows``, ``_pipv2_weighted``): all cases in one call each, every
+case padded with rows that leave the accumulators as they are (unflagged
+(0, 0, 0) or invalid rows after a scan's, identity rows in front of a
+weighted fold's). Inputs
 come from a seeded generator; exact arithmetic, tolerance zero.
 
 Build by hand (what the fixture does):
