@@ -213,7 +213,7 @@ extern "C" int zg_weighted_fold(const void* x, const void* y, const void* z,
                                 void* ox, void* oy, void* oz, long rows, long ncols,
                                 void* stream) {
 #ifdef __CUDACC__
-    // one lane a block: four lanes a warp ran 1-1.5 % slower (PERF.md, PR 7)
+    // one lane a block: four lanes a warp ran 1-1.5 % slower (PERF.md)
     if (ncols > 0)
         weighted_fold_kernel<<<(unsigned)ncols, ZG_WF_LANE, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z,

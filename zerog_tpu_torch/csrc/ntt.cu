@@ -21,7 +21,7 @@
 // and the addresses of 64 loads and 32 stores the rest). So an element's
 // columns split over 4 or 8 threads (more loads in flight, but every thread
 // of a group runs the whole REDC) or 2-4 elements a thread (8- or 16-byte
-// loads, packed stores) were slower on the card (PERF.md, PR 7).
+// loads, packed stores) were slower on the card (PERF.md).
 // ntt_twiddle: one thread owns one element.
 #include "field.cuh"
 
