@@ -34,10 +34,17 @@ lane's first that is not the identity, which cost no product). Their
 of a row are read and an add computed only where the row is valid, not the
 identity, and not the first of its segment); ``bound_all_rows_ms`` reads
 every row and counts an add for every row. The ``ntt`` line gives each
-level's epilogue time beside its bound (``bound_share``). Times are the
-card's, by CUDA events behind a spin (``bench.time_ms``), so a short
-kernel's time leaves out the host's wrappers. The warm WNN proof's SHA-256
-is asserted: a kernel change must leave the proof's bytes as they were.
+level's epilogue and twiddle time beside its bound (``bound_share``); a
+twiddle level, which also regroups the outer level's input and sums its
+columns, also the time of that regroup as a torch copy and sum of the same
+bytes (``regroup_copy_ms``: what the engine ran before the kernel took it
+in). ``field_binop`` is also timed at n = 2^20 (``ms_wide``). The
+``kernels`` line ends with ``launch_floor_ms``, a one-element torch add on
+the same timer: the part of a short kernel's time that is the launch. Times
+are the card's, by CUDA events behind a spin (``bench.time_ms``), so a
+short kernel's time leaves out the host's wrappers. The warm WNN proof's
+SHA-256 is asserted: a kernel change must leave the proof's bytes as they
+were.
 
 The ``bench`` phase drives the two measuring kernels through their
 benchmarks' entry points (``zerog_tpu_torch.bench``): ``field_chain``, 16
@@ -545,9 +552,25 @@ def phase_kernels():
                              reps=3)
             ms1_add = time_ms(lambda: pfield.field_binop_words("add", FQ, wa, wb))
     b1, by1 = bound(3 * 32 * n1, MADS_PER_MUL * n1)
+    # the same at 8 columns of the k = 17 Large shape, n = 2^20
+    n_wide = 8 << 17
+    rng_wide = np.random.default_rng(SEED + 17)   # rng's draws stay as they were
+    wa = kernels.to_word_planes(_rand_mont(rng_wide, (n_wide,)))
+    wb = kernels.to_word_planes(_rand_mont(rng_wide, (n_wide,)))
+    got = pfield.field_binop_words("mul", FQ, wa, wb)
+    ref = pfield.field_binop_plain("mul", FQ, kernels.from_word_planes(wa),
+                                   kernels.from_word_planes(wb))
+    if not _eq(kernels.from_word_planes(got), ref):
+        raise AssertionError(f"field_binop Fq.mul n={n_wide} != plain")
+    del got, ref
+    ms_wide = time_ms(lambda: pfield.field_binop_words("mul", FQ, wa, wb))
+    b_wide = bound(3 * 32 * n_wide, MADS_PER_MUL * n_wide)[0]
     res["field_binop"] = dict(
         ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1, max_abs_err=worst,
-        shape=f"Fq mul, n={n1}", add_ms=ms1_add)
+        shape=f"Fq mul, n={n1}", add_ms=ms1_add, bound_share=b1 / ms1,
+        ms_wide=ms_wide, wide_shape=f"Fq mul, n={n_wide}",
+        bound_wide_ms=b_wide, bound_share_wide=b_wide / ms_wide)
+    del wa, wb
 
     # -- kernels 2 and 3: flush scans at R = 1024, 2560 columns (k = 14, B = 8) --
     n = 1 << K
@@ -709,9 +732,9 @@ class _LevelRecorder:
         self._saved = (pntt._matmul_level, pntt.epilogue, pntt.twiddle)
         matmul_level, epilogue, twiddle = self._saved
 
-        def rec_level(dp, key, xb, twiddle=None, out_bytes=True):
+        def rec_level(dp, key, xb, twiddle=None, out_bytes=True, colsum=None):
             self.levels.append((dp, key, xb))
-            return matmul_level(dp, key, xb, twiddle, out_bytes)
+            return matmul_level(dp, key, xb, twiddle, out_bytes, colsum)
 
         def rec_epilogue(acc, colsum, rowc, tw=None, out_bytes=True):
             out = epilogue(acc, colsum, rowc, tw, out_bytes)
@@ -719,9 +742,9 @@ class _LevelRecorder:
             return out
 
         def rec_twiddle(xb, twc):
-            out = twiddle(xb, twc)
-            self.twiddles.append(((xb, twc), out))
-            return out
+            out, colsum = twiddle(xb, twc)
+            self.twiddles.append(((xb, twc), (out, colsum)))
+            return out, colsum
 
         pntt._matmul_level, pntt.epilogue, pntt.twiddle = (
             rec_level, rec_epilogue, rec_twiddle)
@@ -787,24 +810,36 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
         e["with_twiddle_ms"] += tw_ms
         e["with_twiddle_bound_ms"] += _epilogue_bound(t, lanes, True)[0]
         del twr, got, ref
-    for (xb, twc), out in rec.twiddles:
+    for (xb, twc), (out, colsum) in rec.twiddles:
         s, lanes, r = xb.shape[1], xb.shape[2], twc.shape[2]
-        ref, plain = wall_ms(lambda: pntt.twiddle_plain(xb, twc))
-        if not _eq(out, ref):
+        g = lanes // r
+        (ref, ref_sum), plain = wall_ms(lambda: pntt.twiddle_plain(xb, twc))
+        if not (_eq(out, ref) and _eq(colsum, ref_sum)):
             raise AssertionError(f"ntt_twiddle s={s} lanes={lanes} != plain")
         ms = time_ms(lambda: pntt.twiddle_words(xb, twc), reps=5)
+
+        def regroup():
+            # the data movement the kernel took in: the engine's old regroup
+            # copy of the same bytes and the outer product's column sums
+            x3 = xb.reshape(32, s, r, g).transpose(1, 2).reshape(32, r, s * g)
+            return x3.reshape(32 * r, s * g).sum(dim=0, dtype=torch.int32)
+        copy_ms = time_ms(regroup, reps=5)
         elems = s * lanes
-        b_ms, b_by = bound(elems * 64 + 32 * s * r, elems * MADS_PER_MUL)
+        b_ms, b_by = bound(elems * 64 + 32 * s * r + 4 * s * g,
+                           elems * MADS_PER_MUL)
         w = res["ntt_twiddle"]
         w["ms"] += ms
         w["plain_ms"] += plain
         w["bound_ms"] += b_ms
+        w["regroup_copy_ms"] += copy_ms
         w["bound_by"].add(b_by)
-        w["shapes"].append(f"n=2^{n.bit_length() - 1}: s={s} x {lanes} lanes "
-                           f"(table [{s}, {r}])")
-        levels_out.append(dict(n=n, twiddle_s=s, lanes=lanes, table_r=r,
-                               twiddle_ms=ms, bound_ms=b_ms, bound_by=b_by,
-                               plain_ms=plain))
+        w["shapes"].append(f"n=2^{n.bit_length() - 1}: s={s}, r={r}, G={g} "
+                           f"({s} x {lanes} -> {r} x {s * g} lanes)")
+        level = dict(n=n, twiddle_s=s, twiddle_r=r, twiddle_g=g, twiddle_ms=ms,
+                     bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                     regroup_copy_ms=copy_ms, plain_ms=plain)
+        w["levels"].append(dict(level))
+        levels_out.append(level)
 
 
 def phase_ntt(batch):
@@ -817,6 +852,7 @@ def phase_ntt(batch):
                       shapes=[]) for name in NTT_KERNELS}
     res["ntt_epilogue"].update(int_mm_ms=0.0, variants_checked=0,
                                with_twiddle_ms=0.0, with_twiddle_bound_ms=0.0)
+    res["ntt_twiddle"].update(regroup_copy_ms=0.0, levels=[])
     levels, transforms = [], []
     t0 = time.time()
     for log_n in (K, K + 3):
@@ -1361,6 +1397,11 @@ def main():
         if name in path_res:
             row["wnn_warm_proof"] = {k: v for k, v in path_res[name].items()
                                      if k != "launches"}
+        if name == "ntt_twiddle" and r:
+            row.update(regroup_copy_ms=r["regroup_copy_ms"], levels=r["levels"])
+        if name == "field_binop" and r:
+            row.update(bound_share=r["bound_share"],
+                       bound_share_wide=r["bound_share_wide"])
         if name == "ntt_epilogue" and r:
             row.update(int_mm_ms=r["int_mm_ms"],
                        with_twiddle="not on the path; checked on the path's "
@@ -1368,7 +1409,10 @@ def main():
                        with_twiddle_ms=r["with_twiddle_ms"],
                        with_twiddle_bound_ms=r["with_twiddle_bound_ms"])
         rows.append(row)
-    emit(dict(kernels=rows))
+    # a one-element torch add on the same timer: how much of a ~10 us
+    # kernel is the launch
+    one = torch.zeros(1, dtype=torch.int32, device=DEV)
+    emit(dict(kernels=rows, launch_floor_ms=time_ms(lambda: one.add_(1), reps=21)))
     emit(dict(phase="total", seconds=round(time.time() - t_start, 1)))
     print(gpu_line(), flush=True)
     emit(dict(ok=True, device=dict(platform="gpu",

@@ -50,7 +50,8 @@ from zerog_tpu_torch.curve import pfold, pippenger, pscan
 from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from zerog_tpu_torch.curve.jpoints import (
     jac_double, jac_from_affine, jac_infinity, points_to_device)
-from zerog_tpu_torch.field import FQ, FR
+from zerog_tpu_torch.field import FQ, FR, from_limbs, to_limbs
+from zerog_tpu_torch.field.pfield import field_binop_plain
 from zerog_tpu_torch.poly import pntt
 
 torch.set_num_threads(1)
@@ -538,3 +539,102 @@ def test_ntt_epilogue_host_build_matches_plain(host_lib, with_twiddle, out_bytes
             None if tw is None else tw.data_ptr(), out.data_ptr(), t, lanes,
             int(out_bytes), None) == 0
         assert torch.equal(out, pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes))
+
+
+# ---- ntt_twiddle ----------------------------------------------------------------------
+
+# (s, r, G): G = 1, 6 (the WNN proof's outer levels) and 200, 384, 600, 800
+# (the long lanes of an inner level); s and r not multiples of the tile (40 x
+# 30 pairs in tiles of 16 x 24, 20 x 13 and 20 x 14 in 8 x 8, 5 x 3 in 2 x
+# 1); tiles of one pair (G = 384, 600: a tile is halved no further); lanes
+# split over tiles (G = 800 in two of 400); copies of 1, 4 and 16 bytes.
+TWIDDLE_CASES = {"g1": (40, 30, 1), "g6_bytes": (20, 13, 6), "g6_words": (20, 14, 6),
+                 "g200": (5, 3, 200), "g384": (3, 5, 384), "g600": (5, 3, 600),
+                 "g800_split": (2, 3, 800)}
+# Many tiles of the WNN proof's widths: 16 x 8 pairs at G = 6 with a tile of
+# 4 rows at the edge of r, and 2 x 1 pairs at G = 384 with one of 1 x 1 at the
+# edge of s. Their twiddles are the Montgomery one, so that the reference is
+# the regroup and its sums alone (the cases above hold the products).
+TWIDDLE_WIDE_CASES = {"g6": (2048, 20, 6), "g384": (33, 17, 384)}
+
+
+def _twiddle_inputs(s, r, g, seed):
+    """Byte planes int8 [32, s, r G] (-128 offset) of canonical Fr elements,
+    the first two 0 and p - 1, and a twiddle table of word planes [8, s, r]."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, (8, s, r * g), dtype=np.uint64)
+    w[7] &= 0x1FFFFFFF
+    edge = kernels.to_word_planes(torch.from_numpy(
+        to_limbs([0, FR.p - 1]).astype(np.int64)))
+    w[:, 0, :2] = edge.numpy().astype(np.uint32)
+    planes = np.stack([(w[b // 4] >> (8 * (b % 4))) & 0xFF for b in range(32)])
+    xb = torch.from_numpy((planes.astype(np.int16) - 128).astype(np.int8))
+    tw = rng.integers(0, 1 << 32, (8, s, r), dtype=np.uint64)
+    tw[7] &= 0x1FFFFFFF
+    return xb, torch.from_numpy(tw.astype(np.uint32).view(np.int32))
+
+
+def _host_twiddle(host_lib, xb, twc, s, r, g):
+    out = torch.empty((32, r, s * g), dtype=torch.int8)
+    colsum = torch.full((s * g,), 7, dtype=torch.int32)     # the call zeroes it
+    assert host_lib.zg_ntt_twiddle(xb.data_ptr(), twc.data_ptr(), out.data_ptr(),
+                                   colsum.data_ptr(), s, r, g, None) == 0
+    return out, colsum
+
+
+@pytest.mark.parametrize("case", list(TWIDDLE_CASES))
+def test_ntt_twiddle_host_build_matches_plain(host_lib, case):
+    """zg_ntt_twiddle (tiles staged, multiplied, stored regrouped, lane sums
+    added) against ``twiddle_plain``: the outer level's input bytes and its
+    column sums."""
+    s, r, g = TWIDDLE_CASES[case]
+    xb, twc = _twiddle_inputs(s, r, g, s * r + g)
+    out, colsum = _host_twiddle(host_lib, xb, twc, s, r, g)
+    ref, ref_sum = pntt.twiddle_plain(xb, twc)
+    assert torch.equal(out, ref)
+    assert torch.equal(colsum, ref_sum)
+
+
+@pytest.mark.parametrize("case", list(TWIDDLE_WIDE_CASES))
+def test_ntt_twiddle_host_build_wide(host_lib, case):
+    """zg_ntt_twiddle over many tiles, against the regroup of its input and
+    that regroup's column sums."""
+    s, r, g = TWIDDLE_WIDE_CASES[case]
+    xb, _ = _twiddle_inputs(s, r, g, s + r)
+    one = kernels.to_word_planes(torch.from_numpy(
+        to_limbs([FR.r_mont]).astype(np.int64))).reshape(8, 1, 1)
+    out, colsum = _host_twiddle(host_lib, xb, one.expand(8, s, r).contiguous(), s, r, g)
+    ref = xb.reshape(32, s, r, g).transpose(1, 2).reshape(32, r, s * g)
+    assert torch.equal(out, ref)
+    assert torch.equal(colsum, ref.reshape(32 * r, s * g).sum(dim=0, dtype=torch.int32))
+
+
+# ---- field_binop ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+@pytest.mark.parametrize("params", [FQ, FR], ids=["fq", "fr"])
+def test_field_binop_host_build_matches_plain(host_lib, params, op):
+    """zg_field_binop (the field and the op as template parameters) against
+    ``field_binop_plain`` and Python ints at n = 4, 6, 7 and 130 (word planes
+    that start off a 16-byte boundary; a block and a tail), the operands 0, 1
+    and p - 1 against each other first."""
+    p = params.p
+    rng = np.random.default_rng(5)
+    edge = [0, 1, p - 1]
+    rinv = pow(params.r_mont, -1, p)
+    truth = {"mul": lambda x, y: x * y * rinv % p, "add": lambda x, y: (x + y) % p,
+             "sub": lambda x, y: (x - y) % p}[op]
+    for n in (4, 6, 7, 130):
+        xs = [edge[i % 3] for i in range(9)] + [int(v) % p for v in rng.integers(0, 1 << 62, n)]
+        ys = [edge[i // 3] for i in range(9)] + [int(v) * 7919 % p
+                                                 for v in rng.integers(0, 1 << 62, n)]
+        a = torch.from_numpy(to_limbs(xs[:n]).astype(np.int64))
+        b = torch.from_numpy(to_limbs(ys[:n]).astype(np.int64))
+        wa, wb = kernels.to_word_planes(a), kernels.to_word_planes(b)
+        out = torch.empty_like(wa)
+        assert host_lib.zg_field_binop(wa.data_ptr(), wb.data_ptr(), out.data_ptr(), n,
+                                       0 if params is FQ else 1, ["mul", "add", "sub"].index(op),
+                                       None) == 0
+        got = kernels.from_word_planes(out)
+        assert torch.equal(got, field_binop_plain(op, params, a, b))
+        assert list(from_limbs(got)) == [truth(x, y) for x, y in zip(xs[:n], ys[:n])]

@@ -174,7 +174,9 @@ def test_cpu_tensors_take_plain_versions_and_leave_the_build_alone():
     assert pntt.epilogue(acc, zero8, rowc).shape == (32, 2, 8)
     assert pntt.epilogue(acc, zero8, rowc, out_bytes=False).shape == (8, 2, 8)
     xb = torch.full((32, 2, 8), -128, dtype=torch.int8)
-    assert torch.equal(pntt.twiddle(xb, torch.zeros((8, 2, 4), dtype=torch.int32)), xb)
+    out, colsum = pntt.twiddle(xb, torch.zeros((8, 2, 4), dtype=torch.int32))
+    assert torch.equal(out, xb.reshape(32, 4, 4))        # zeros, regrouped
+    assert torch.equal(colsum, torch.full((4,), -128 * 32 * 4, dtype=torch.int32))
     rone = pfield.to_planes(to_device(to_limbs([FR.r_mont] * 128), "cpu"))
     assert torch.equal(field_chain.field_chain(FR, a, rone, k=2), a)   # x * 1 * 1
     one = to_device(to_limbs([FQ.r_mont] * 3), "cpu").reshape(1, 3, 16)

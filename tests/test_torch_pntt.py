@@ -186,11 +186,25 @@ def _jax_twiddle_body(xb, twc, g):
     return np.stack([np.asarray(o) for o in out])
 
 
+def _jax_regroup(xb2, s, r, g):
+    """zerog_tpu's regroup of the twiddled bytes for the outer transforms
+    (``_run_device``'s transpose) and the column sums its ``_matmul_level``
+    takes of that outer level's input."""
+    xb3 = (jnp.asarray(xb2).reshape(32, s, r, g).transpose(0, 2, 1, 3)
+           .reshape(32, r, s * g))
+    colsum = jnp.sum(xb3.reshape(32 * r, s * g).astype(jnp.int32), axis=0)
+    return np.asarray(xb3), np.asarray(colsum)
+
+
 def test_twiddle_equals_kernel_body():
+    """The port's one pass (twiddle, regroup, column sums) against
+    zerog_tpu's twiddle kernel body followed by its regroup and sums."""
     s, r, g = 8, 16, 8
     xb, twc = _twiddle_inputs(s, r, g, 7)
-    got = T.twiddle(xb, _words(twc)).numpy()
-    assert np.array_equal(got, _jax_twiddle_body(xb, twc, g))
+    got, got_sum = T.twiddle(xb, _words(twc))
+    want, want_sum = _jax_regroup(_jax_twiddle_body(xb, twc, g), s, r, g)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got_sum.numpy(), want_sum)
 
 
 # ---- whole transforms --------------------------------------------------------
@@ -270,9 +284,11 @@ def test_twiddle_equals_interpret_kernel():
     s, r, g = 8, 16, 8
     xb, twc = _twiddle_inputs(s, r, g, 7)
     tw = jnp.asarray(np.repeat(np.moveaxis(twc, -1, 0), g, axis=2))
-    want = np.asarray(jax.jit(J._twiddle_call(s, r * g, True))(
-        jnp.asarray(xb.numpy()), tw))
-    assert np.array_equal(T.twiddle(xb, _words(twc)).numpy(), want)
+    want, want_sum = _jax_regroup(jax.jit(J._twiddle_call(s, r * g, True))(
+        jnp.asarray(xb.numpy()), tw), s, r, g)
+    got, got_sum = T.twiddle(xb, _words(twc))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got_sum.numpy(), want_sum)
 
 
 @SLOW

@@ -1,10 +1,11 @@
 """Builds of the kernel library held against each other on the card, in
-turns: ``ntt_epilogue`` at every level of the WNN proof's forward
-transforms (2^14 and 2^17, six columns) and ``weighted_fold`` at the MSM's
-shape (K = 128 rows, 16 lanes) on dense rows and on rows that are mostly the
+turns: ``ntt_twiddle`` and ``ntt_epilogue`` at every level of the WNN
+proof's forward transforms (2^14 and 2^17, six columns), ``field_binop``
+(Fq product) at n = 2^17 and 2^20, and ``weighted_fold`` at the MSM's shape
+(K = 128 rows, 16 lanes) on dense rows and on rows that are mostly the
 identity.
 
-    python -m zerog_tpu_torch.bench.ab DIR [DIR ...]
+    python -m zerog_tpu_torch.bench.ab DIR[:sum|:nocheck] [DIR ...]
 
 builds this tree's ``csrc/`` and each DIR (the ``csrc/`` of another tree, such
 as the parent commit's, with the same C functions) into a library of its own
@@ -12,14 +13,27 @@ under ``_build/``, runs every case on each library in turns (A B .. B A, so
 that drift on the card falls on both alike), holds their outputs equal word
 for word, and prints one JSON line a case with each library's ms (the median
 of its turns, each turn the median of 5 runs by :func:`time_ms`), then one
-line with each library's ``ptxas`` report of the two kernels, and the card's
+line with each library's ``ptxas`` report of the kernels, and the card's
 name and power limit. It raises without a card or if two libraries disagree.
+
+A ``ntt_twiddle`` case is what the engine runs between a level's inner
+transforms and its outer product: this tree's ``zg_ntt_twiddle`` writes the
+outer product's input and its column sums in one launch. A DIR whose
+``zg_ntt_twiddle`` takes seven arguments (the twiddle alone, as before the
+regroup and the sums were fused into it) is followed, as the engine then
+ran it, by the torch regroup copy and the sum of the columns; ``DIR:sum``
+follows a fused launch by that sum in place of the kernel's own.
+``DIR:nocheck`` times a library whose outputs are not this tree's (a kernel
+with a part taken out, to see what that part costs) without holding them
+equal.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import statistics
 import sys
 
@@ -32,9 +46,10 @@ from ..curve.jpoints import jac_double, jac_from_affine, points_to_device
 from ..curve.bn254 import G1_GEN
 from ..poly import pntt
 from ..poly.ntt import NttPlan
-from . import gpu_line, time_ms
+from . import gpu_line, random_words, time_ms
 
-__all__ = ["epilogue_cases", "weighted_cases", "main"]
+__all__ = ["epilogue_cases", "twiddle_cases", "binop_cases", "weighted_cases",
+           "main"]
 
 DEV = torch.device("cuda", 0)
 BATCH = 6          # advice columns of the MNIST-Tiny WNN circuit
@@ -43,8 +58,8 @@ BATCH = 6          # advice columns of the MNIST-Tiny WNN circuit
 def epilogue_cases(seed=1):
     """Every epilogue of one forward transform of BATCH random columns at
     2^14 and at 2^17, as the engine launches them (its real accumulators):
-    a case is (name, C function, input pointers, the trailing int arguments,
-    the outputs' shapes and dtypes, the input tensors)."""
+    a case is (name, builder, the input tensors), where builder(lib, spec)
+    returns (a run on that library, its output tensors)."""
     rng = np.random.default_rng(seed)
     cases = []
     for log_n in (14, 17):
@@ -69,9 +84,87 @@ def epilogue_cases(seed=1):
                                                                   torch.int32)
             cases.append((f"ntt_epilogue 2^{log_n} level {i}: t={t} x {lanes} lanes, "
                           f"{'bytes' if out_bytes else 'words'} out",
-                          "zg_ntt_epilogue",
-                          (acc.data_ptr(), colsum.data_ptr(), rowc.data_ptr(), None),
-                          (t, lanes, int(out_bytes)), [out], (acc, colsum, rowc)))
+                          _launcher("zg_ntt_epilogue",
+                                    (acc.data_ptr(), colsum.data_ptr(),
+                                     rowc.data_ptr(), None),
+                                    (t, lanes, int(out_bytes)), [out]),
+                          (acc, colsum, rowc)))
+    return cases
+
+
+def twiddle_cases(seed=3):
+    """Every ``ntt_twiddle`` of one forward transform of BATCH random columns
+    at 2^14 and at 2^17 (the inner and the outer level), on the engine's own
+    inputs, as :func:`epilogue_cases` gives them."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for log_n in (14, 17):
+        plan = NttPlan(log_n, device=DEV)
+        limbs = rng.integers(0, 1 << 16, (BATCH, 1 << log_n, 16), dtype=np.int64)
+        limbs[..., 15] &= 0x1FFF
+        calls = []
+        saved = pntt.twiddle
+
+        def record(xb, twc):
+            calls.append((xb, twc))
+            return saved(xb, twc)
+
+        pntt.twiddle = record
+        try:
+            plan.ntt(torch.from_numpy(limbs).to(DEV))
+        finally:
+            pntt.twiddle = saved
+        for xb, twc in calls:
+            s, r = xb.shape[1], twc.shape[2]
+            g = xb.shape[2] // r
+            cases.append((f"ntt_twiddle 2^{log_n}: s={s}, r={r}, G={g}",
+                          _twiddle_builder(xb, twc), (xb, twc)))
+    return cases
+
+
+def _twiddle_builder(xb, twc):
+    s, r = xb.shape[1], twc.shape[2]
+    g = xb.shape[2] // r
+
+    def build(lib, spec):
+        out = torch.empty((32, r, s * g), dtype=torch.int8, device=DEV)
+        colsum = torch.empty(s * g, dtype=torch.int32, device=DEV)
+        stream = kernels.current_stream(DEV)
+
+        def column_sums():
+            torch.sum(out.view(32 * r, s * g), dim=0, dtype=torch.int32, out=colsum)
+
+        if spec["twiddle_args"] == 7:
+            mid = torch.empty_like(xb)
+
+            def run():
+                _check(lib.zg_ntt_twiddle(xb.data_ptr(), twc.data_ptr(),
+                                          mid.data_ptr(), s, r, g, stream))
+                out.view(32, r, s, g).copy_(mid.view(32, s, r, g).transpose(1, 2))
+                column_sums()
+        else:
+            def run():
+                _check(lib.zg_ntt_twiddle(xb.data_ptr(), twc.data_ptr(),
+                                          out.data_ptr(), colsum.data_ptr(), s, r,
+                                          g, stream))
+                if spec["sum"]:
+                    column_sums()
+        return run, [out, colsum]
+    return build
+
+
+def binop_cases(seed=4):
+    """``field_binop`` Fq products at n = 2^17 (8 columns of a k = 14
+    proof) and 2^20 (8 columns at the k = 17 Large shape) on random
+    canonical word planes."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for log_n in (17, 20):
+        n = 1 << log_n
+        a, b = (random_words(rng, (n,)).to(DEV) for _ in range(2))
+        cases.append((f"field_binop Fq mul n=2^{log_n}",
+                      _launcher("zg_field_binop", (a.data_ptr(), b.data_ptr()),
+                                (n, 0, 0), [((8, n), torch.int32)]), (a, b)))
     return cases
 
 
@@ -94,50 +187,80 @@ def weighted_cases(seed=2, k=128, lanes=16):
         rows = [pfold._rows_to_planes(torch.where(keep, c[idx], 0)) for c in pool]
         planes = rows + bias_planes
         cases.append((f"weighted_fold K={k} x {lanes} lanes, {name}",
-                      "zg_weighted_fold", tuple(p.data_ptr() for p in planes),
-                      (k, lanes), [((8, lanes), torch.int32)] * 3, planes))
+                      _launcher("zg_weighted_fold", tuple(p.data_ptr() for p in planes),
+                                (k, lanes), [((8, lanes), torch.int32)] * 3),
+                      planes))
     return cases
 
 
-def _runner(lib, fn, ptrs, tail, outs):
-    out = [torch.empty(shape, dtype=dtype, device=DEV) for shape, dtype in outs]
-    stream = kernels.current_stream(DEV)
+def _check(code):
+    if code != 0:
+        raise RuntimeError(f"kernel launch failed (CUDA error {code})")
 
-    def run():
-        code = getattr(lib, fn)(*ptrs, *(o.data_ptr() for o in out), *tail, stream)
-        if code != 0:
-            raise RuntimeError(f"{fn}: kernel launch failed (CUDA error {code})")
-    return run, out
+
+def _launcher(fn, ptrs, tail, outs):
+    """The builder of a case that calls C function `fn` with the input
+    pointers, one new tensor per output (shape, dtype), the trailing int
+    arguments and the stream."""
+    def build(lib, spec):
+        out = [torch.empty(shape, dtype=dtype, device=DEV) for shape, dtype in outs]
+        stream = kernels.current_stream(DEV)
+
+        def run():
+            _check(getattr(lib, fn)(*ptrs, *(o.data_ptr() for o in out), *tail,
+                                    stream))
+        return run, out
+    return build
+
+
+def _twiddle_args(csrc_dir):
+    """The number of arguments of ``zg_ntt_twiddle`` in `csrc_dir`'s
+    ``ntt.cu``."""
+    with open(os.path.join(csrc_dir, "ntt.cu")) as f:
+        m = re.search(r'extern "C" int zg_ntt_twiddle\(([^)]*)\)', f.read())
+    return m.group(1).count(",") + 1
 
 
 def main(argv=None):
-    dirs = list(sys.argv[1:] if argv is None else argv)
-    if not dirs or not torch.cuda.is_available():
-        raise SystemExit("usage: python -m zerog_tpu_torch.bench.ab DIR [DIR ...] "
-                         "(needs a CUDA card)")
+    args = list(sys.argv[1:] if argv is None else argv)
+    if not args or not torch.cuda.is_available():
+        raise SystemExit("usage: python -m zerog_tpu_torch.bench.ab DIR[:sum|:nocheck] "
+                         "... (needs a CUDA card)")
     torch.cuda.set_device(DEV)
-    names = ["this tree"] + dirs
-    libs, ptxas = [], {}
-    for i, src in enumerate([kernels.CSRC_DIR] + dirs):
-        path = kernels.build(force=True, csrc_dir=os.path.abspath(src),
+    names = ["this tree"] + args
+    dirs = [kernels.CSRC_DIR] + [os.path.abspath(a.split(":")[0]) for a in args]
+    libs, specs, ptxas = [], [], {}
+    for i, src in enumerate(dirs):
+        path = kernels.build(force=True, csrc_dir=src,
                              build_dir=os.path.join(kernels.BUILD_DIR, f"ab{i}"))
-        libs.append(kernels.load(path))
+        lib = kernels.load(path)
+        spec = dict(twiddle_args=_twiddle_args(src), sum=names[i].endswith(":sum"))
+        if spec["twiddle_args"] == 7:
+            lib.zg_ntt_twiddle.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long] * 3 + [
+                ctypes.c_void_p]
+        libs.append(lib)
+        specs.append(spec)
         ptxas[names[i]] = {k: v for k, v in kernels.BUILD_INFO["ptxas"].items()
-                           if k in ("weighted_fold_kernel", "ntt_epilogue_kernel")}
+                           if k.startswith(("weighted_fold_kernel", "ntt_epilogue_kernel",
+                                            "ntt_twiddle_kernel", "field_binop_kernel"))}
     order = list(range(len(libs))) + list(range(len(libs)))[::-1]
-    for name, fn, ptrs, tail, outs, _ in epilogue_cases() + weighted_cases():
-        runs = [_runner(lib, fn, ptrs, tail, outs) for lib in libs]
+    for name, build, _ in (twiddle_cases() + binop_cases() + epilogue_cases()
+                           + weighted_cases()):
+        runs = [build(lib, spec) for lib, spec in zip(libs, specs)]
         for run, _ in runs:
             run()
         torch.cuda.synchronize()
         first = runs[0][1]
         for (_, out), label in zip(runs[1:], names[1:]):
+            if label.endswith(":nocheck"):
+                continue
             if not all(torch.equal(a, b) for a, b in zip(first, out)):
                 raise AssertionError(f"{name}: {label} != this tree")
         turns = {label: [] for label in names}
         for i in order:
             turns[names[i]].append(time_ms(runs[i][0]))
-        print(json.dumps(dict(case=name, equal=True, ms={
+        print(json.dumps(dict(case=name, equal=[n for n in names
+                                                 if not n.endswith(":nocheck")], ms={
             label: statistics.median(v) for label, v in turns.items()},
             turns_ms=turns)), flush=True)
     print(json.dumps(dict(ptxas=ptxas, gpu=gpu_line())), flush=True)

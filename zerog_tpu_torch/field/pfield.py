@@ -9,12 +9,17 @@ device: a CPU tensor goes to the plain version (the tensor field of
 
 Kernel note — ``field_binop`` replaces ``PField._binary_kernel`` of
 ``zerog_tpu/field/pfield.py`` (the bodies ``_mul_body``, ``_add_body``,
-``_sub_body``), Fq and Fr. One thread per element over 32-bit word planes. An
-element moves 96 bytes (two operands read, one result written) for at most
-128 32-bit multiply-adds (64 for the product, 64 for the reduction), so on
-this card every one of its operations is bound by bytes. The design keeps
-each element's 8 words in registers for the whole word-serial Montgomery
-pass and reads and writes each word plane coalesced. The same device
+``_sub_body``), Fq and Fr. An element moves 96 bytes (two operands read, one
+result written) for at most 128 32-bit multiply-adds (64 for the product, 64
+for the reduction), so on this card every one of its operations is bound by
+bytes. The field and the operation are template parameters (one
+branch-free body a launch); one thread owns one element, keeps its 8 words
+in registers for the whole word-serial Montgomery pass and reads and writes
+each word plane coalesced, and a wave of 128-thread blocks at 40 registers
+keeps enough warps on an SM that their loads overlap the others' products.
+Two or four elements a thread with 8- or 16-byte loads, and a grid of the
+card's size striding over the elements with the next ones loaded ahead,
+were slower on the card (``csrc/field_binop.cu``). The same device
 functions are what the MSM kernels inline.
 """
 

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "zg_sum_rows": [_P, _P, _P, _I, _P],
     "zg_weighted_fold": [_P] * 9 + [_L, _L, _P],
     "zg_ntt_epilogue": [_P] * 5 + [_L, _L, _I, _P],
-    "zg_ntt_twiddle": [_P] * 3 + [_L, _L, _L, _P],
+    "zg_ntt_twiddle": [_P] * 4 + [_L, _L, _L, _P],
     "zg_field_chain": [_P, _P, _P, _L, _I, _I, _P],
     "zg_scan_bisect": [_I] + [_P] * 4 + [_L, _L, _P],
 }
@@ -80,7 +80,9 @@ def _nvcc() -> str:
 
 def _parse_ptxas(text: str) -> dict:
     """'ptxas info' lines -> {kernel name: {registers, stack, spill_stores,
-    spill_loads}} (names demangled as far as the identifier)."""
+    spill_loads}} (names demangled as far as the identifier and its integer
+    template arguments, e.g. ``field_binop_kernel<0,0,4>``; a field argument
+    is 0 for Fq, 1 for Fr)."""
     out = {}
     name = None
     for line in text.splitlines():
@@ -91,9 +93,9 @@ def _parse_ptxas(text: str) -> dict:
             if mm:
                 end = mm.end() + int(mm.group(1))
                 name = mangled[mm.end():end]
-                if mangled[end:end + 1] == "I":
-                    name += ("<Fr>" if "ILi1E" in mangled else
-                             "<Fq>" if "ILi0E" in mangled else "")
+                targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+                if targs:
+                    name += "<" + ",".join(re.findall(r"Li(-?\d+)E", targs.group(1))) + ">"
             out.setdefault(name, {})
             continue
         if name is None:

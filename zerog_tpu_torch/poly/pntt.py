@@ -7,7 +7,8 @@ Counterpart of ``zerog_tpu/poly/pntt.py``. An NTT is a linear map; over the
 Scheme (recursive four-step, factors <= 256):
     n = r * s,  x[i1 + r*i2]  (i1 in [r], i2 in [s])
     1. s-point sub-NTTs along i2 (batched over i1)     -> S[i1, j2]
-    2. twiddle  S'[i1, j2] = omega^(i1*j2) * S[i1, j2]   (kernel ntt_twiddle)
+    2. twiddle  S'[i1, j2] = omega^(i1*j2) * S[i1, j2]   (kernel ntt_twiddle,
+       which also regroups S' for step 3 and sums its columns)
     3. r-point DFT product along i1 (batched over j2)  -> X[s*j1 + j2]
 Base case t <= 256: one dense DFT product.
 
@@ -39,7 +40,8 @@ Kernel note — ``ntt_epilogue`` replaces ``_epilogue_call`` /
 One thread per element (row j, lane g, g fastest so that each of the 32
 plane loads of a warp is one coalesced line). It adds the -128 correction
 itself (``colsum``, ``rowc``: the JAX code does that in a separate pass over
-the int32 accumulator), carries the 32 byte columns into 8 words plus a high
+the int32 accumulator; for an outer level the column sums come from
+``ntt_twiddle``), carries the 32 byte columns into 8 words plus a high
 word (< 2^22), does one 9-word Montgomery REDC (PTX carry chains) and one
 conditional subtract, optionally a Montgomery product by a twiddle, and
 writes int8 byte planes (-128 offset) or int32 word planes. Per element it
@@ -49,12 +51,24 @@ an element, so it reaches ~70 % of the bytes bound at 2^17. Splitting an
 element over several threads, or packing several elements into a thread's
 wide loads and stores, measured slower (``csrc/ntt.cu``).
 
-Kernel note — ``ntt_twiddle`` replaces ``_twiddle_call`` of the same file.
-One thread per element: bytes (-128 offset) -> 8 words, a Montgomery
-product by omega_m^(i1*j2), bytes again. 64 bytes moved against 128
-multiply-adds: bound by bytes. It reads the twiddle from the compact
-``[8, s, r]`` word table (lane l of row j2 takes column l // G) and never
-materialises the G-times-larger broadcast.
+Kernel note — ``ntt_twiddle`` replaces ``_twiddle_call`` of the same file
+and the regroup that follows it in its ``_run_device`` (and so the copy the
+regroup was here, and the sum of the outer product's columns). One pass: it
+reads the inner transforms' bytes [32, s, r * G] (-128 offset) and the
+compact ``[8, s, r]`` word table (lane l of row j2 takes column l // G; the
+G-times-larger broadcast never exists), multiplies element (j2, i1, g) by
+omega_m^(i1*j2) (Montgomery), writes the outer level's input [32, r, s * G]
+directly and the byte sum of each of its lanes, which ``_matmul_level``
+takes instead of summing that input again. A block owns a tile of
+(j2, i1) pairs with all G lanes of each, so that both its reads and its
+writes are runs of bytes (48 and 96 bytes at the 2^17 outer level); it
+stages the tile's 32 planes in shared memory by 16-byte ``cp.async``,
+multiplies from registers, writes the bytes back in output order and adds
+each lane's sum with one ``atomicAdd`` a tile. 64 bytes an element against
+the 128 multiply-adds of one product: bound by bytes, and the products'
+issued instructions take nearly as long. On the card a 2^17 level takes
+~2.9x its bytes bound: the staged copies and the products do not overlap
+(``csrc/ntt.cu``, ``PERF.md``).
 
 A CPU tensor takes the plain versions (:func:`epilogue_plain`,
 :func:`twiddle_plain`, tensor field arithmetic), a CUDA tensor the kernels;
@@ -310,19 +324,23 @@ def epilogue(acc, colsum, rowc, tw=None, out_bytes: bool = True):
 
 def twiddle_plain(xb, twc):
     """Plain version of ``ntt_twiddle``: xb int8 byte planes [32, s, r * G]
-    (-128 offset), twc int32 word planes [8, s, r] -> int8 [32, s, r * G],
-    each element times twc[:, j2, lane // G] (Montgomery)."""
+    (-128 offset), twc int32 word planes [8, s, r] -> (int8 [32, r, s * G],
+    int32 [s * G]): each element times twc[:, j2, lane // G] (Montgomery),
+    regrouped for the outer product (element (j2, i1, g) to row i1, lane
+    j2 * G + g), and each output lane's byte sum over its rows and planes."""
     s, lanes = xb.shape[1], xb.shape[2]
     r = twc.shape[2]
     g = lanes // r
     tw = _words_to_limbs(torch.movedim(twc, 0, -1))             # [s, r, 16]
     tw = tw[:, :, None, :].expand(s, r, g, 16).reshape(s, lanes, 16)
-    return _limbs_to_bytes(jfr().mul(_bytes_to_limbs(xb), tw))
+    prod = _limbs_to_bytes(jfr().mul(_bytes_to_limbs(xb), tw))
+    out = prod.reshape(32, s, r, g).transpose(1, 2).reshape(32, r, s * g)
+    return out, out.reshape(32 * r, s * g).sum(dim=0, dtype=torch.int32)
 
 
 @kernels.register("ntt_twiddle")
 def twiddle_words(xb, twc):
-    """Launch ``ntt_twiddle`` (CUDA tensors; arguments as
+    """Launch ``ntt_twiddle`` (CUDA tensors; arguments and results as
     :func:`twiddle_plain`)."""
     if not isinstance(xb, torch.Tensor) or xb.dim() != 3 or xb.shape[0] != 32:
         raise ValueError("ntt_twiddle: expected byte planes [32, s, r * G]")
@@ -331,14 +349,16 @@ def twiddle_words(xb, twc):
         raise ValueError("ntt_twiddle: expected a twiddle table [8, s, r] "
                          "with r dividing the lanes")
     r = twc.shape[2]
+    g = lanes // r
     kernels.check_planes("ntt_twiddle xb", xb, (32, s, lanes), torch.int8)
     kernels.check_planes("ntt_twiddle twc", twc, (8, s, r))
-    out = torch.empty_like(xb)
+    out = torch.empty((32, r, s * g), dtype=torch.int8, device=xb.device)
+    colsum = torch.empty(s * g, dtype=torch.int32, device=xb.device)
     code = kernels.lib().zg_ntt_twiddle(
-        xb.data_ptr(), twc.data_ptr(), out.data_ptr(), s, r, lanes // r,
-        kernels.current_stream(xb.device))
+        xb.data_ptr(), twc.data_ptr(), out.data_ptr(), colsum.data_ptr(), s, r,
+        g, kernels.current_stream(xb.device))
     kernels.launched("ntt_twiddle", code)
-    return out
+    return out, colsum
 
 
 def twiddle(xb, twc):
@@ -390,15 +410,18 @@ def _device_plan(plan: PnttPlan, device) -> _DevicePlan:
 
 
 def _matmul_level(dp: _DevicePlan, key, xb, twiddle=None,
-                  out_bytes: bool = True):
+                  out_bytes: bool = True, colsum=None):
     """One DFT level: xb int8 [32, t, G] -> epilogue output. The product is
     ``torch._int_mm`` (s8 x s8 -> s32); the epilogue (correction, carry,
-    REDC, optional twiddle) is the kernel."""
+    REDC, optional twiddle) is the kernel. `colsum`, the byte sums of xb's
+    lanes, comes from the twiddle pass before an outer level; other levels
+    sum xb here."""
     t = key[0]
     g = xb.shape[2]
     a = xb.reshape(32 * t, g)
     acc = torch._int_mm(dp.mats[key], a)
-    colsum = a.sum(dim=0, dtype=torch.int32)
+    if colsum is None:
+        colsum = a.sum(dim=0, dtype=torch.int32)
     return epilogue(acc.view(32, t, g), colsum, dp.rowc[key], twiddle,
                     out_bytes)
 
@@ -416,12 +439,12 @@ def _run_device(dp: _DevicePlan, prog, xb, out_bytes: bool):
                             out_bytes=True)
     # twiddle omega_m^(i1*j2): the outer product contracts over i1, so its
     # inputs are twiddled first (an epilogue fold would need i1-dependent
-    # matrices)
+    # matrices); the same pass regroups them for the outer r-point
+    # transforms along i1, batched over (j2, g), and sums their columns
     twc = dp.twiddle_planes(prog["log_m"], prog["omega"], r, s)   # [8, s, r]
-    xb2 = twiddle(inner_out, twc)
-    # regroup for the outer r-point transforms along i1, batched over (j2, g)
-    xb3 = (xb2.reshape(32, s, r, g).transpose(1, 2).reshape(32, r, s * g))
-    out = _matmul_level(dp, prog["mat"], xb3, out_bytes=out_bytes)
+    xb3, colsum = twiddle(inner_out, twc)
+    out = _matmul_level(dp, prog["mat"], xb3, out_bytes=out_bytes,
+                        colsum=colsum)
     # output index j = s*j1 + j2: [.., r(j1), s*g] -> [.., m, g] directly
     return out.reshape(out.shape[0], m, g)
 
