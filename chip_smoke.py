@@ -50,8 +50,11 @@ The ``bench`` phase drives the two measuring kernels through their
 benchmarks' entry points (``zerog_tpu_torch.bench``): ``field_chain``, 16
 chained Fr products an element at n = 2^18, beside 16 launches of
 ``field_binop``; the four ``scan_bisect`` bodies at R = 1,024 rows and
-2,560 and 20,480 columns, beside ``flush_scan_affine`` at R x 2,560 (its
-chain floor counts its longest segment), and ``torch.cumsum`` beside
+2,560 and 20,480 columns, each beside its bound counted by what its inputs
+need (``madd``: the valid rows) and the chain floor of its design
+(``madd``: the longest valid count of a column; ``mul_smem``: the chunked
+scan's depth, K chunks a column), beside ``flush_scan_affine`` at R x 2,560
+(its chain floor counts its longest segment), and ``torch.cumsum`` beside
 ``trivial``, which computes the same function. Their rows in the ``kernels`` line count the
 launches of that path (``launches_path``); no proof path runs them.
 
@@ -1390,6 +1393,8 @@ def main():
                     "bound_all_rows_ms", "required_adds", "identity_share",
                     "ms_wide", "wide_shape", "wide_over_narrow", "bound_wide_ms",
                     "chain_floor_ms", "carried_floor_ms", "plain_rows",
+                    "chain_products", "chain_floor_wide_ms", "longest_valid",
+                    "chunks", "chunks_wide",
                     "chained_ms", "chained_bound_ms", "ns_per_product",
                     "product_latency_us", "mproducts_per_s"):
             if key in r:

@@ -33,6 +33,7 @@ Build by hand (what the fixture does):
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 
@@ -436,6 +437,95 @@ def test_scan_bisect_trivial_host_build_chunks(host_lib, case):
     lx = kernels.from_word_planes(sx)
     ref = scan_bisect.scan_bisect_plain("trivial", lx, lx, flags.bool())
     assert torch.equal(kernels.from_word_planes(out), ref)
+
+
+def _bisect_host(host_lib, body, sx, sy, flags):
+    """zg_scan_bisect body `body` of the host build against the plain
+    version, limb for limb."""
+    r, _, c = sx.shape
+    out = torch.empty_like(sx)
+    assert host_lib.zg_scan_bisect(scan_bisect.BODIES.index(body), sx.data_ptr(),
+                                   sy.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                                   r, c, None) == 0
+    ref = scan_bisect.scan_bisect_plain(body, kernels.from_word_planes(sx),
+                                        kernels.from_word_planes(sy), flags.bool())
+    assert torch.equal(kernels.from_word_planes(out), ref)
+
+
+def _madd_flags(case, rng):
+    """Valid bits [R, C] of one madd case; blocks of 32 rows share one word."""
+    if case == "no_valid_row_in_a_column":
+        f = rng.random((70, 5)) < 0.3
+        f[:, 2] = False
+    elif case == "every_row_valid":
+        f = np.ones((40, 4), bool)
+    elif case == "valid_only_at_row_0":
+        f = np.zeros((70, 4), bool)
+        f[0] = True
+    elif case == "valid_only_at_last_row":
+        f = np.zeros((70, 4), bool)
+        f[69] = True
+        f[0, 1] = True                          # and a column with both ends
+    elif case == "invalid_run_across_block_edge":
+        f = np.zeros((100, 4), bool)
+        f[[5, 90], 0] = True                    # two blocks without a valid row
+        f[[31, 32], 1] = True                   # the last and first rows of blocks
+        f[[30, 70], 2] = True
+        f[[63, 64, 95, 99], 3] = True
+    else:                                       # ragged: R, C not multiples
+        f = rng.random((45, 37)) < 0.1
+    return torch.from_numpy(f.astype(np.uint8))
+
+
+MADD_CASES = ["no_valid_row_in_a_column", "every_row_valid", "valid_only_at_row_0",
+              "valid_only_at_last_row", "invalid_run_across_block_edge", "ragged"]
+
+
+@pytest.mark.parametrize("case", MADD_CASES)
+def test_scan_bisect_madd_host_build_skips_invalid_rows(host_lib, case):
+    """zg_scan_bisect's ``madd`` walks only the valid rows (taken from the
+    bits of each block of 32 rows) and fills the rows between them: no
+    valid row in a column, every row valid, valid only at the first or the
+    last row, runs of invalid rows across blocks' edges, ragged R and C."""
+    rng = np.random.default_rng(MADD_CASES.index(case) + 40)
+    flags = _madd_flags(case, rng)
+    r, c = flags.shape
+    sx, sy, _ = scan_bisect.make_inputs(r, c, seed=MADD_CASES.index(case) + 50)
+    _bisect_host(host_lib, "madd", sx, sy, flags)
+
+
+# (R, C) of each mul_smem case and the chunks K that csrc/bench.cu takes there
+MUL_CASES = {
+    "rows_not_multiple_of_chunk": (45, 7, 4),     # chunks of 12, 12, 12, 9 rows
+    "rows_below_one_chunk": (5, 4, 1),
+    "sixteen_chunks_last_short": (200, 9, 16),     # 15 of 13 rows, one of 5
+    "empty_last_chunk": (129, 5, 16),              # 14 of 9 rows, one of 3, one empty
+    "ragged_columns": (100, 37, 8),                # blocks of 16 columns
+}
+
+
+@pytest.mark.parametrize("case", list(MUL_CASES))
+def test_scan_bisect_mul_smem_host_build_chunks(host_lib, case):
+    """zg_scan_bisect's ``mul_smem`` as a chunked scan: pass 1 of every
+    chunk, the join of the chunk results, pass 2; R not a multiple of the
+    chunk or of 32, R below one chunk, the last chunk short or empty,
+    ragged C."""
+    r, c, k = MUL_CASES[case]
+    assert scan_bisect.mul_chunks(r, c) == k
+    sx, sy, flags = scan_bisect.make_inputs(r, c, seed=list(MUL_CASES).index(case) + 60)
+    _bisect_host(host_lib, "mul_smem", sx, sy, flags)
+
+
+def test_mul_chunk_plan_mirrors_csrc():
+    """The plan of scan_bisect.mul_chunks (its chain floor) uses the
+    constants of csrc/bench.cu."""
+    with open(os.path.join(kernels.CSRC_DIR, "bench.cu")) as f:
+        src = f.read()
+    for name in ("MAX_CHUNKS", "MIN_ROWS", "FILL"):
+        m = re.search(rf"#define ZG_MUL_{name} (\d+)", src)
+        assert m and int(m.group(1)) == getattr(scan_bisect, f"MUL_{name}"), name
+    assert [scan_bisect.mul_chunks(1024, c) for c in (2560, 20480, 40)] == [32, 8, 32]
+    assert scan_bisect.mul_depth(1024, 2560) == 32 + 5 + 32
 
 
 # ---- weighted_fold ----------------------------------------------------------------

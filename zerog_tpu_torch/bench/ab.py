@@ -1,11 +1,12 @@
 """Builds of the kernel library held against each other on the card, in
 turns: ``ntt_twiddle`` and ``ntt_epilogue`` at every level of the WNN
 proof's forward transforms (2^14 and 2^17, six columns), ``field_binop``
-(Fq product) at n = 2^17 and 2^20, and ``weighted_fold`` at the MSM's shape
+(Fq product) at n = 2^17 and 2^20, ``weighted_fold`` at the MSM's shape
 (K = 128 rows, 16 lanes) on dense rows and on rows that are mostly the
-identity.
+identity, and the ``scan_bisect`` bodies ``madd`` and ``mul_smem`` at
+R = 1,024 rows x 2,560 and 20,480 columns (the benchmark's inputs).
 
-    python -m zerog_tpu_torch.bench.ab DIR[:sum|:nocheck] [DIR ...]
+    python -m zerog_tpu_torch.bench.ab DIR[:sum|:nocheck] [DIR ...] [--cases K,..]
 
 builds this tree's ``csrc/`` and each DIR (the ``csrc/`` of another tree, such
 as the parent commit's, with the same C functions) into a library of its own
@@ -25,7 +26,8 @@ ran it, by the torch regroup copy and the sum of the columns; ``DIR:sum``
 follows a fused launch by that sum in place of the kernel's own.
 ``DIR:nocheck`` times a library whose outputs are not this tree's (a kernel
 with a part taken out, to see what that part costs) without holding them
-equal.
+equal. ``--cases`` keeps the kinds of case named (of ``twiddle``,
+``binop``, ``epilogue``, ``weighted``, ``bisect``; all by default).
 """
 
 from __future__ import annotations
@@ -46,10 +48,10 @@ from ..curve.jpoints import jac_double, jac_from_affine, points_to_device
 from ..curve.bn254 import G1_GEN
 from ..poly import pntt
 from ..poly.ntt import NttPlan
-from . import gpu_line, random_words, time_ms
+from . import gpu_line, random_words, time_ms, scan_bisect
 
 __all__ = ["epilogue_cases", "twiddle_cases", "binop_cases", "weighted_cases",
-           "main"]
+           "bisect_cases", "main"]
 
 DEV = torch.device("cuda", 0)
 BATCH = 6          # advice columns of the MNIST-Tiny WNN circuit
@@ -193,6 +195,29 @@ def weighted_cases(seed=2, k=128, lanes=16):
     return cases
 
 
+def bisect_cases():
+    """``scan_bisect`` ``madd`` and ``mul_smem`` on the benchmark's inputs:
+    R = ROWS rows of COLS and WIDE columns, flags at 10 %."""
+    wide_in = [t.to(DEV) for t in scan_bisect.make_inputs(scan_bisect.ROWS,
+                                                          scan_bisect.WIDE)]
+    cases = []
+    for cols in (scan_bisect.COLS, scan_bisect.WIDE):
+        sx, sy, flags = (t[..., :cols].contiguous() for t in wide_in)
+        for body in ("madd", "mul_smem"):
+            cases.append((f"scan_bisect_{body} R={scan_bisect.ROWS} x {cols} columns",
+                          _launcher("zg_scan_bisect",
+                                    (scan_bisect.BODIES.index(body), sx.data_ptr(),
+                                     sy.data_ptr(), flags.data_ptr()),
+                                    (scan_bisect.ROWS, cols), [(tuple(sx.shape),
+                                                                torch.int32)]),
+                          (sx, sy, flags)))
+    return cases
+
+
+CASES = {"twiddle": twiddle_cases, "binop": binop_cases, "epilogue": epilogue_cases,
+         "weighted": weighted_cases, "bisect": bisect_cases}
+
+
 def _check(code):
     if code != 0:
         raise RuntimeError(f"kernel launch failed (CUDA error {code})")
@@ -223,9 +248,14 @@ def _twiddle_args(csrc_dir):
 
 def main(argv=None):
     args = list(sys.argv[1:] if argv is None else argv)
-    if not args or not torch.cuda.is_available():
+    kinds = list(CASES)
+    if "--cases" in args:
+        i = args.index("--cases")
+        kinds = args[i + 1].split(",")
+        del args[i:i + 2]
+    if not args or not torch.cuda.is_available() or not set(kinds) <= set(CASES):
         raise SystemExit("usage: python -m zerog_tpu_torch.bench.ab DIR[:sum|:nocheck] "
-                         "... (needs a CUDA card)")
+                         f"... [--cases {','.join(CASES)}] (needs a CUDA card)")
     torch.cuda.set_device(DEV)
     names = ["this tree"] + args
     dirs = [kernels.CSRC_DIR] + [os.path.abspath(a.split(":")[0]) for a in args]
@@ -242,10 +272,10 @@ def main(argv=None):
         specs.append(spec)
         ptxas[names[i]] = {k: v for k, v in kernels.BUILD_INFO["ptxas"].items()
                            if k.startswith(("weighted_fold_kernel", "ntt_epilogue_kernel",
-                                            "ntt_twiddle_kernel", "field_binop_kernel"))}
+                                            "ntt_twiddle_kernel", "field_binop_kernel",
+                                            "scan_bisect_"))}
     order = list(range(len(libs))) + list(range(len(libs)))[::-1]
-    for name, build, _ in (twiddle_cases() + binop_cases() + epilogue_cases()
-                           + weighted_cases()):
+    for name, build, _ in [case for kind in kinds for case in CASES[kind]()]:
         runs = [build(lib, spec) for lib, spec in zip(libs, specs)]
         for run, _ in runs:
             run()

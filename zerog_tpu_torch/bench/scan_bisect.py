@@ -1,36 +1,43 @@
-"""Kernel 9, ``scan_bisect``: the affine flush scan's structure with growing
-bodies, their plain version, and the bisection of ``flush_scan_affine``'s
-time.
+"""Kernel 9, ``scan_bisect``: the affine flush scan's bisection bodies, their
+plain version, and the bisection of ``flush_scan_affine``'s time.
 
 Counterpart of ``scripts/bench_pscan_bisect.py``, which bisects the TPU
-flush scan. What is bisected here is the first design of the port's kernel
-2 (``flush_scan_affine``, ``csrc/flush_scan.cu``): its structure — one
-thread a column, one warp a block, the R rows walked in order — with four
-bodies, one kernel each. Every row writes the carry's x.
+flush scan with four bodies, one kernel each here. Every row writes the
+carry's x.
 
 - ``trivial``: the carry is the running sum of the rows, word by word mod
-  2^32, from 0. Its kernel has a design of its own: the sum is exact in any
-  grouping, so a thread owns one of the 8 C word lanes, and chunks of 32
-  rows are loaded together and joined by a prefix of their totals. It
-  reads the memory floor of a scan over this layout with its rows in
-  flight, against ``torch.cumsum`` (the same function).
-- ``mul_smem``: carry <- carry * x_r (Fq, Montgomery) from carry = x_0, the
-  carry written to shared memory and read back every row (the TPU's
-  scratch).
-- ``mul_reg``: the same function, the carry in registers.
+  2^32, from 0. The sum is exact in any grouping, so a thread owns one of
+  the 8 C word lanes, and chunks of 32 rows are loaded together and joined
+  by a prefix of their totals. It reads the memory floor of a scan over
+  this layout with its rows in flight, against ``torch.cumsum`` (the same
+  function).
+- ``mul_smem``: carry <- carry * x_r (Fq, Montgomery) from carry = x_0. The
+  product is exact on canonical operands and so associative: the kernel is
+  a chunked scan, K chunks a column (:func:`mul_chunks`), the chunk results
+  joined by a log-depth prefix in shared memory, about 2 R C products with
+  a chain of 2 L + log2 K (:func:`mul_depth`) instead of R.
+- ``mul_reg``: the same function in kernel 2's first design, kept until it
+  is redesigned: one thread a column, one warp a block, the R rows walked in
+  order, the carry in registers.
 - ``madd``: carry <- ``jac_madd_incomplete(carry, x_r, y_r, flag_r)`` from
-  (x_0, y_0, 0): kernel 2's mixed add, 11 products a row.
+  (x_0, y_0, 0): kernel 2's mixed add, 11 products a valid row. An invalid
+  row leaves the carry as it is, so the kernel walks the valid rows only,
+  four threads sharing each add; its chain is the column with the most
+  valid rows.
 
     python -m zerog_tpu_torch.bench.scan_bisect
 
 times the four bodies at R = 1,024 rows and C = 2,560 columns (kernel 2's
 shape in a k = 14 proof; the TPU script used 2,048) and at 8x the columns,
-and ``flush_scan_affine`` at R x C, each beside its bound and its chain
-floor (R x the products a row x the latency of one product in a dependent
-chain, measured in the same run); then checks every body against the plain
-version. A time that stays flat from C to 8 C columns is bound by the chain
-with the card mostly idle; one that grows 8x had the card full already. It
-runs on the card and raises without one.
+and ``flush_scan_affine`` at R x C, each beside its bound (counted by what
+the inputs need; ``bound_all_rows_ms`` every row read and added) and its
+design's chain floor (the products on its longest dependent chain x the
+latency of one product in a dependent chain, measured in the same run:
+``madd`` the longest valid count x 3 carried products, ``mul_smem`` the
+chunked scan's depth, ``mul_reg`` R); then checks every body against the
+plain version. A time that stays flat from C to 8 C columns is bound by the
+chain with the card mostly idle; one that grows 8x had the card full
+already. It runs on the card and raises without one.
 
 :func:`scan_bisect` takes limb tensors on either device: a CPU tensor goes
 to the plain version, a CUDA tensor to the kernel.
@@ -49,14 +56,14 @@ R < 2^16.
 
 Kernel note — ``scan_bisect_{trivial,mul_smem,mul_reg,madd}`` replace the
 bodies ``k_trivial``, ``k_mul``, ``k_mul_reg`` and ``k_madd`` of
-``scripts/bench_pscan_bisect.py`` (``run``). ``trivial`` is bound by bytes
-(64 R C: a row read, the carry written), the two ``mul`` bodies by bytes as
-well (their 128 R C multiply-adds take less), ``madd`` by operations (11 x
-128 R C multiply-adds). The design of the three product bodies is kernel
-2's first one on purpose: with one chain of dependent work a column and
-only a few thousand columns in flight, each body shows how much of that
-structure's time its own work explains. ``trivial``, whose chain is a sum
-that may be regrouped, loads its rows together instead.
+``scripts/bench_pscan_bisect.py`` (``run``). ``trivial`` and the two
+``mul`` bodies are bound by bytes (64 R C: a row read, the carry written;
+the products of ``mul`` take less), ``madd`` by operations (11 x 128
+multiply-adds a valid row after its column's first). ``trivial`` loads its
+rows together, ``mul_smem`` regroups its product into chunks and ``madd``
+skips its invalid rows (``csrc/bench.cu`` says how); ``mul_reg`` keeps the
+first design, a chain of R products a column with only C / 32 warps in
+flight, until it is redesigned.
 """
 
 from __future__ import annotations
@@ -74,7 +81,8 @@ from . import (MADS_PER_MUL, bound, flush_scan_affine_bound, gpu_line,
 from .field_chain import product_latency_us
 
 __all__ = ["BODIES", "scan_bisect", "scan_bisect_words", "scan_bisect_plain",
-           "make_inputs", "bisect_bound", "run", "check", "main"]
+           "make_inputs", "bisect_bound", "mul_chunks", "mul_depth", "madd_counts",
+           "run", "check", "main"]
 
 BODIES = ("trivial", "mul_smem", "mul_reg", "madd")
 ROWS = 1024
@@ -86,6 +94,10 @@ SEED = 0                # the TPU script's
 # chain carried from row to row (madd: z' = z (x_r z^2 - x), three)
 PRODUCTS = {"trivial": 0, "mul_smem": 1, "mul_reg": 1, "madd": 11}
 CARRIED_PRODUCTS = {"trivial": 0, "mul_smem": 1, "mul_reg": 1, "madd": 3}
+# mul_smem's plan, as csrc/bench.cu chooses it (ZG_MUL_*)
+MUL_MAX_CHUNKS = 32
+MUL_MIN_ROWS = 8
+MUL_FILL = 131072
 
 
 def scan_bisect_plain(body: str, sx, sy, flags):
@@ -170,12 +182,61 @@ def make_inputs(rows: int, cols: int, seed: int = SEED):
     return sx, sy, flags
 
 
-def bisect_bound(body: str, rows: int, cols: int):
-    """(ms, by) of one launch: a row of x read and the carry's x written
-    (madd: y and the flag read as well); the products' multiply-adds."""
+def mul_chunks(rows: int, cols: int) -> int:
+    """K, the chunks of a column in ``scan_bisect_mul_smem``: the least
+    power of two that puts MUL_FILL threads in flight, at most
+    MUL_MAX_CHUNKS, chunks of at least MUL_MIN_ROWS rows."""
+    k = 1
+    while (k < MUL_MAX_CHUNKS and k * cols < MUL_FILL
+           and 2 * k * MUL_MIN_ROWS <= rows):
+        k *= 2
+    return k
+
+
+def mul_depth(rows: int, cols: int) -> int:
+    """Dependent products on ``scan_bisect_mul_smem``'s longest chain: pass
+    1 (chunk 0 walks its L rows, the others reduce theirs), the log2 K
+    rounds of the prefix of the chunk results, then a chunk's rows again."""
+    k = mul_chunks(rows, cols)
+    if k == 1:
+        return rows
+    length = -(-rows // k)
+    spans = [max(0, min(rows, (c + 1) * length) - c * length) for c in range(k)]
+    first = max([spans[0]] + [n - 1 for n in spans[1:]])
+    return first + (k - 1).bit_length() + max(spans[1:])
+
+
+def madd_counts(flags):
+    """(valid rows, required adds, longest valid count of a column) of
+    flags [R, C]: every valid row after its column's first is an add (the
+    first takes the row's point)."""
+    valid = flags.bool()
+    n = int(valid.sum())
+    return n, n - int(valid.any(dim=0).sum()), int(valid.sum(dim=0).max())
+
+
+def bisect_bound(body: str, rows: int, cols: int, flags=None):
+    """(ms, by) of one launch, counted by what the inputs need: a row of x
+    read and the carry's x written; the products' multiply-adds. ``madd``
+    with `flags`: x of every row written, its flag read, x and y of the
+    valid rows and x of row 0 read, 11 products an add (:func:`madd_counts`).
+    Without `flags` every row is read and added (``bound_all_rows_ms``)."""
     n = rows * cols
+    if body == "madd" and flags is not None:
+        valid, adds, _ = madd_counts(flags)
+        return bound(33 * n + 64 * valid + 32 * cols,
+                     adds * PRODUCTS["madd"] * MADS_PER_MUL)
     return bound((97 if body == "madd" else 64) * n,
                  PRODUCTS[body] * MADS_PER_MUL * n)
+
+
+def _chain(body, rows, cols, flags):
+    """Dependent products on the longest chain of the body's design."""
+    if body == "madd":
+        return madd_counts(flags)[2] * CARRIED_PRODUCTS["madd"]
+    if body == "mul_smem":
+        return mul_depth(rows, cols)
+    return rows * CARRIED_PRODUCTS[body]
 
 
 def _floors(rows, products, carried, latency_us):
@@ -199,13 +260,22 @@ def run(device):
                       scan_bisect_words(body, *wide_in))
         ms = time_ms(lambda: scan_bisect_words(body, *narrow_in), reps=3)
         ms_wide = time_ms(lambda: scan_bisect_words(body, *wide_in), reps=3)
-        bms, by = bisect_bound(body, rows, cols)
+        bms, by = bisect_bound(body, rows, cols, narrow_in[2])
+        chain = _chain(body, rows, cols, narrow_in[2])
         res[body] = dict(shape=f"R={rows}, columns={cols}", ms=ms, ms_wide=ms_wide,
                          wide_shape=f"R={rows}, columns={wide}",
                          wide_over_narrow=ms_wide / ms, bound_ms=bms, bound_by=by,
-                         bound_wide_ms=bisect_bound(body, rows, wide)[0],
-                         **_floors(rows, PRODUCTS[body], CARRIED_PRODUCTS[body],
-                                   latency))
+                         bound_all_rows_ms=bisect_bound(body, rows, cols)[0],
+                         bound_wide_ms=bisect_bound(body, rows, wide, wide_in[2])[0],
+                         chain_products=chain,
+                         chain_floor_ms=chain * latency / 1e3,
+                         chain_floor_wide_ms=_chain(body, rows, wide, wide_in[2])
+                         * latency / 1e3)
+        if body == "madd":
+            res[body]["longest_valid"] = madd_counts(narrow_in[2])[2]
+        if body == "mul_smem":
+            res[body]["chunks"] = mul_chunks(rows, cols)
+            res[body]["chunks_wide"] = mul_chunks(rows, wide)
     # kernel 2 itself on the same rows, valid at 99 % and flags at 2.5 % as
     # in the kernel check of chip_smoke.py
     rng = np.random.default_rng(SEED + 1)
@@ -261,8 +331,7 @@ def main(argv=None) -> None:
                 if "ms_wide" in r else "")
         print(f"{name:18s} [{r['shape']}]: {r['ms']:.3f} ms; bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}; chain floor "
-              f"{r['chain_floor_ms']:.3f} ms (carried {r['carried_floor_ms']:.3f})"
-              f"{wide}", flush=True)
+              f"{r['chain_floor_ms']:.3f} ms{wide}", flush=True)
     for body in check(narrow_in, outs):
         print(f"{body}: equal to the plain version over all {ROWS} rows",
               flush=True)

@@ -13,33 +13,28 @@
 // card when it is full.
 //
 // zg_scan_bisect replaces the four bodies of bench_pscan_bisect.py (`run`:
-// k_trivial, k_mul, k_mul_reg, k_madd), which bisect the TPU flush scan.
-// What is bisected here is the first design of the port's kernel 2 (one
-// thread a column walking the rows): that structure, with growing bodies.
-// One thread a column, one warp a block, the R rows walked in order; the
+// k_trivial, k_mul, k_mul_reg, k_madd), which bisect the TPU flush scan. The
 // stream is word planes uint32[R, 8, C], the flags one byte each [R, C];
 // every row writes the carry's x to out [R, 8, C]. Bodies, one kernel each:
 //   trivial   the carry is the running sum of the rows, word by word mod 2^32
-//             (bound by bytes: 64 R C). Its own design: a running sum mod
-//             2^32 is exact in any grouping, so one thread owns a word lane
-//             (8 C of them) and chunks of 32 rows are loaded together and
-//             joined by a prefix of the chunk totals in shared memory: the
-//             rows are in flight together, not one round trip a row. It
-//             reads the memory floor of a scan over this layout;
-//   mul_smem  carry <- carry * x_r (Fq), the carry written to shared memory
-//             and read back every row, the counterpart of the TPU's scratch;
-//   mul_reg   the same product, the carry in registers;
-//   madd      carry <- jac_madd_incomplete(carry, x_r, y_r, flag_r != 0),
-//             starting from (x_0, y_0, 0): kernel 2's add (11 products a row,
-//             bound by operations: 11 * 128 R C multiply-adds).
-// The loop of the other bodies is serial down a column by construction:
-// they measure how far a chain of dependent work, with only a few thousand
-// columns in flight, keeps the card from its bound. Comparing the bodies,
-// and the same bodies at 8x the columns, tells whether such a scan waits on
-// memory or on its chain of products.
+//             (bound by bytes: 64 R C). A running sum mod 2^32 is exact in
+//             any grouping, so one thread owns a word lane (8 C of them) and
+//             chunks of 32 rows are loaded together and joined by a prefix of
+//             the chunk totals in shared memory: the rows are in flight
+//             together, not one round trip a row;
+//   mul_smem  carry <- carry * x_r (Fq) from x_0: a chunked scan whose chunk
+//             results meet in shared memory (see its note below);
+//   mul_reg   the same function in the first design of kernel 2, kept until
+//             it is redesigned: one thread a column, one warp a block, the R
+//             rows walked in order with one round trip to memory a row, the
+//             carry in registers. It is bound by its chain of R dependent
+//             products, with only C / 32 warps in flight;
+//   madd      carry <- jac_madd_incomplete(carry, x_r, y_r, flag_r != 0) from
+//             (x_0, y_0, 0), kernel 2's mixed add: only the valid rows cost
+//             products (see its note below).
 #include "field.cuh"
 
-#define ZG_BISECT_THREADS 32  // one warp a block, as flush_scan_affine
+#define ZG_BISECT_THREADS 32  // mul_reg: one warp a block, as kernel 2's first design
 
 template <int F>
 ZG_HD void field_chain_column(long col, const uint32_t* a, const uint32_t* b,
@@ -53,50 +48,17 @@ ZG_HD void field_chain_column(long col, const uint32_t* a, const uint32_t* b,
 
 enum { ZG_BISECT_TRIVIAL = 0, ZG_BISECT_MUL_SMEM, ZG_BISECT_MUL_REG, ZG_BISECT_MADD };
 
-// One column of the bisection. `scratch` holds the carry of mul_smem, word k
-// at scratch[k * sstride] (shared memory on the card).
-template <int BODY>
-ZG_HD void scan_bisect_column(long col, const uint32_t* sx, const uint32_t* sy,
-                              const uint8_t* flags, uint32_t* out, long rows,
-                              long ncols, volatile uint32_t* scratch, int sstride) {
+// mul_reg: one column, its rows in order.
+ZG_HD void mul_reg_column(long col, const uint32_t* sx, uint32_t* out, long rows,
+                          long ncols) {
     if (rows <= 0) return;
     const long row_words = (long)ZG_NW * ncols;
-    if (BODY == ZG_BISECT_MUL_SMEM) {
-        const Fe x0 = fe_load(sx, ncols, col);
-#pragma unroll
-        for (int k = 0; k < ZG_NW; k++) scratch[k * sstride] = x0.w[k];
+    Fe carry = fe_load(sx, ncols, col);
 #pragma unroll 1
-        for (long r = 0; r < rows; r++) {
-            const long off = r * row_words;
-            Fe carry;
-#pragma unroll
-            for (int k = 0; k < ZG_NW; k++) carry.w[k] = scratch[k * sstride];
-            const Fe m = fe_mul<0>(carry, fe_load(sx + off, ncols, col));
-#pragma unroll
-            for (int k = 0; k < ZG_NW; k++) scratch[k * sstride] = m.w[k];
-            fe_store(out + off, ncols, col, m);
-        }
-    } else if (BODY == ZG_BISECT_MUL_REG) {
-        Fe carry = fe_load(sx, ncols, col);
-#pragma unroll 1
-        for (long r = 0; r < rows; r++) {
-            const long off = r * row_words;
-            carry = fe_mul<0>(carry, fe_load(sx + off, ncols, col));
-            fe_store(out + off, ncols, col, carry);
-        }
-    } else {
-        Jac carry;
-        carry.x = fe_load(sx, ncols, col);
-        carry.y = fe_load(sy, ncols, col);
-        carry.z = fe_zero();
-#pragma unroll 1
-        for (long r = 0; r < rows; r++) {
-            const long off = r * row_words;
-            carry = jac_madd_incomplete(carry, fe_load(sx + off, ncols, col),
-                                        fe_load(sy + off, ncols, col),
-                                        flags[r * ncols + col] != 0);
-            fe_store(out + off, ncols, col, carry.x);
-        }
+    for (long r = 0; r < rows; r++) {
+        const long off = r * row_words;
+        carry = fe_mul<0>(carry, fe_load(sx + off, ncols, col));
+        fe_store(out + off, ncols, col, carry);
     }
 }
 
@@ -140,6 +102,329 @@ ZG_HD long trivial_chunk_rows(long rows, long tile, int w, long& r0) {
     return n < 0 ? 0 : n < ZG_TRIVIAL_CHUNK ? n : ZG_TRIVIAL_CHUNK;
 }
 
+// ---- mul_smem: the prefix product as a chunked scan ------------------------------
+// Replaces k_mul (bench_pscan_bisect.py:87): carry <- carry * x_r from
+// carry = x_0, the carry after every row written. Bound on the card by bytes
+// (64 R C: a row of x read, the carry written; its R C products take a
+// third of that at the card's integer peak). Walked in order, a column is a
+// chain of R dependent products (~0.43 us each), which at C = 2,560 leaves
+// the card nearly idle. The Montgomery product is exact on canonical
+// operands, so it is associative: mont(mont(a, b), c) = a b c R^-2 =
+// mont(a, mont(b, c)) mod q, and the prefix may be regrouped with every word
+// unchanged. The design cuts a column's rows into K chunks of
+// L = ceil(R / K) rows. Neighbouring threads own neighbouring columns of one
+// chunk, so every word plane's loads and stores coalesce; a block of
+// ZG_MUL_THREADS holds all K chunks of ZG_MUL_THREADS / K columns. Pass 1:
+// chunk 0 walks its rows from x_0 and writes them; chunk c > 0 reduces its
+// rows to their product T_c. The results meet in shared memory (the carry in
+// shared memory that the body's name stands for) and are joined by a
+// log-depth prefix (log2 K rounds of one product a thread); chunk c then
+// walks its rows again from the product of the results before it (reading x
+// a second time, from L2) and writes them. That is about 2 R C products with
+// a chain of 2 L + log2 K, against R C products with a chain of R. A chain
+// of products runs at full rate only with ~20 warps an SM in flight, so K is
+// the least power of two that puts ZG_MUL_FILL threads in flight (at most
+// ZG_MUL_MAX_CHUNKS, chunks of at least ZG_MUL_MIN_ROWS rows): 32 at
+// C = 2,560, 8 at 20,480. Rows are loaded ZG_MUL_AHEAD ahead of their
+// product.
+#define ZG_MUL_THREADS 256    // a block: K chunks of ZG_MUL_THREADS / K columns
+#define ZG_MUL_MAX_CHUNKS 32  // so that a chunk spans >= 8 columns, whole 32-byte sectors
+#define ZG_MUL_MIN_ROWS 8     // rows of a chunk, at least
+#define ZG_MUL_FILL 131072    // threads in flight that fill the card
+#define ZG_MUL_AHEAD 2        // rows loaded ahead of their product
+
+// K, the chunks of a column: a power of two.
+ZG_HD int mul_chunks(long rows, long ncols) {
+    int k = 1;
+    while (k < ZG_MUL_MAX_CHUNKS && (long)k * ncols < ZG_MUL_FILL &&
+           2L * k * ZG_MUL_MIN_ROWS <= rows)
+        k *= 2;
+    return k;
+}
+
+// Rows [r0, r1) of chunk c of k; empty past the last row.
+ZG_HD void mul_chunk_rows(long rows, int k, int c, long& r0, long& r1) {
+    const long len = (rows + k - 1) / k;
+    r0 = c * len;
+    r1 = r0 + len < rows ? r0 + len : rows;
+}
+
+// carry * x_r for the rows r of [r0, r1) in order, each written to out if
+// `store`; returns the last carry.
+ZG_HD Fe mul_walk(Fe carry, const uint32_t* sx, uint32_t* out, long r0, long r1,
+                  long ncols, long col, bool store) {
+    const long row_words = (long)ZG_NW * ncols;
+    Fe ahead[ZG_MUL_AHEAD];
+#pragma unroll
+    for (int a = 0; a < ZG_MUL_AHEAD; a++)
+        ahead[a] = r0 + a < r1 ? fe_load(sx + (r0 + a) * row_words, ncols, col) : fe_zero();
+#pragma unroll 1
+    for (long r = r0; r < r1; r++) {
+        const Fe x = ahead[0];
+#pragma unroll
+        for (int a = 0; a + 1 < ZG_MUL_AHEAD; a++) ahead[a] = ahead[a + 1];
+        const long rn = r + ZG_MUL_AHEAD;
+        ahead[ZG_MUL_AHEAD - 1] =
+            rn < r1 ? fe_load(sx + rn * row_words, ncols, col) : fe_zero();
+        carry = fe_mul<0>(carry, x);
+        if (store) fe_store(out + r * row_words, ncols, col, carry);
+    }
+    return carry;
+}
+
+// Pass 1 of chunk c, rows [r0, r1): chunk 0 walks its rows from x_0 and
+// writes them, another chunk reduces its rows to their product. Returns the
+// chunk's result (chunk 0: its last carry; no rows: the Montgomery one,
+// which leaves a product as it is).
+ZG_HD Fe mul_chunk_first(int c, const uint32_t* sx, uint32_t* out, long r0, long r1,
+                         long ncols, long col) {
+    if (r0 >= r1) return fe_one<0>();
+    const Fe first = fe_load(sx + r0 * ZG_NW * ncols, ncols, col);
+    return c == 0 ? mul_walk(first, sx, out, r0, r1, ncols, col, true)
+                  : mul_walk(first, sx, out, r0 + 1, r1, ncols, col, false);
+}
+
+// ---- madd: a chain of mixed adds that skips what changes nothing ---------------
+// Replaces k_madd (bench_pscan_bisect.py:121). The flag is the valid bit, and
+// for an invalid row jac_madd_incomplete returns the carry as it is, so only
+// the valid rows cost products. What they need (11 products each after the
+// column's first; x and y of the valid rows read, x of every row written)
+// would take the card ~0.03 ms. What bounds the design is the chain: the
+// column with the most valid rows takes one dependent mixed add after
+// another. So the add's latency is shared: a group of ZG_MADD_GROUP threads
+// owns a column and runs kernel 2's levels (madd_finish_start, add_level), a
+// valid row's levels 1-2 beside levels 4-5 of the valid row before, so that
+// a step is three rounds of at most four products, exchanged by shuffles.
+// The walk goes from one valid row to the next by the set bits of a word,
+// the valid bytes of a block of 32 rows loaded a block ahead, and the next
+// valid row's x and y are loaded into registers during the step before
+// (6 % faster on the card than staging them into shared memory by
+// cp.async). A step writes the x of the add it finishes at that add's row
+// only. The rows in between get it once the block's 32 columns have been
+// walked: the block fills them from there (x_0 before the first valid row),
+// a warp on 32 neighbouring columns of one word, so that every store writes
+// a whole 128-byte line (a fill by the 8 columns of one walking warp writes
+// 32-byte pieces of lines: 25 % slower at 20,480 columns). Every group of a
+// warp steps until the longest of its eight columns ends, and a block fills
+// after its longest of 32: accepted, since the card's time is its longest
+// column's.
+#define ZG_MADD_GROUP 4      // threads that share a column's adds
+#define ZG_MADD_THREADS 128  // a block: four warps, 32 columns
+#define ZG_FLAG_ROWS 32      // a block of rows whose valid bytes make one word
+
+ZG_HD int zg_ctz(uint32_t x) {
+#ifdef __CUDA_ARCH__
+    return __ffs(x) - 1;
+#else
+    return __builtin_ctz(x);
+#endif
+}
+
+// Thread j of a group of G loads the valid bytes of rows r0 + j + G t
+// (t < 32 / G) of column col; the loads stay in flight until madd_flag_bits
+// reads them.
+template <int G>
+ZG_HD void madd_flag_loads(uint32_t (&f)[ZG_FLAG_ROWS / G], const uint8_t* flags, long r0,
+                           long rows, long ncols, long col, int j) {
+#pragma unroll
+    for (int t = 0; t < ZG_FLAG_ROWS / G; t++) {
+        const long r = r0 + j + (long)t * G;
+        f[t] = r < rows ? flags[r * ncols + col] : 0u;
+    }
+}
+
+// The block's valid rows as the bits of one word, the same in every thread
+// of the group.
+template <int G>
+ZG_HD uint32_t madd_flag_bits(const uint32_t (&f)[ZG_FLAG_ROWS / G], int j) {
+    uint32_t b = 0u;
+#pragma unroll
+    for (int t = 0; t < ZG_FLAG_ROWS / G; t++) b |= (uint32_t)(f[t] != 0u) << (j + t * G);
+#ifdef __CUDA_ARCH__
+    const unsigned base = (threadIdx.x & 31u) & ~(unsigned)(G - 1);
+    const unsigned mask = ((1u << G) - 1u) << base;
+#pragma unroll
+    for (int d = 1; d < G; d *= 2) b |= __shfl_xor_sync(mask, b, d);
+#endif
+    return b;
+}
+
+// Where a column's walk stands in its valid bytes.
+template <int G>
+struct MaddFlags {
+    long r0;                           // the first row of the block of `bits`
+    uint32_t bits;                     // its valid rows not taken yet
+    uint32_t ahead[ZG_FLAG_ROWS / G];  // the next block's bytes, in flight
+};
+
+// The column's next valid row, or `rows` past its last. Entering a block
+// reads the bytes loaded a block ahead and loads the next block's.
+template <int G>
+ZG_HD long madd_next_valid(MaddFlags<G>& fl, const uint8_t* flags, long rows, long ncols,
+                           long col, int j) {
+    while (fl.bits == 0u) {
+        if (fl.r0 + ZG_FLAG_ROWS >= rows) return rows;
+        fl.r0 += ZG_FLAG_ROWS;
+        fl.bits = madd_flag_bits<G>(fl.ahead, j);
+        madd_flag_loads<G>(fl.ahead, flags, fl.r0 + ZG_FLAG_ROWS, rows, ncols, col, j);
+    }
+    const int i = zg_ctz(fl.bits);
+    fl.bits &= fl.bits - 1u;
+    return fl.r0 + i;
+}
+
+// A column's walk through its valid rows.
+struct MaddWalk {
+    Jac carry;      // the carry after the last add finished
+    bool inflight;  // an add to it has run levels 1-3: half
+    Fe half[4];     // h, hh, s2 and z3 = Z1 H of the add in flight
+    long pend;      // the valid row last taken, whose x is not written yet (-1: none)
+};
+
+// One step of the walk: levels 4-5 of the add in flight beside levels 1-2 of
+// valid row v's add (qx, qy), then level 3 of v's: three rounds, whatever the
+// step needs, so that the groups of a warp stay in step. The finished add's
+// x is written to its row, `pend` (thread j: words j + G m). v < 0: the
+// column's end, where the add in flight finishes and none starts. The
+// selects of jac_madd_incomplete decide what is kept: a carry whose z is 0
+// becomes (qx, qy, 1).
+template <int G>
+ZG_HD void madd_walk_step(MaddWalk& wk, const Fe& qx, const Fe& qy, long v, uint32_t* out,
+                          long ncols, long col, int j) {
+    // the z of the carry before row v, known three levels into an add
+    const Fe zc = fe_select(wk.inflight, wk.half[3], wk.carry.z);
+    Fe u2, zz;
+    {
+        const Fe half[4] = {wk.half[0], wk.half[1], wk.half[2], zc};
+        const Jac done = madd_finish_start<G>(wk.carry, half, qx, u2, zz, j);
+        if (wk.inflight) wk.carry = done;
+    }
+    if (wk.pend >= 0) {
+        uint32_t* o = out + wk.pend * ZG_NW * ncols + col;
+#pragma unroll
+        for (int k = 0; k < ZG_NW; k++)
+            if (k % G == j) o[(long)k * ncols] = wk.carry.x.w[k];
+    }
+    wk.inflight = false;
+    wk.pend = v;
+    if (v < 0) return;
+    const Fe h = fe_sub<0>(u2, wk.carry.x);
+    Fe lc[3];
+    {
+        const Fe a[3] = {qy, h, wk.carry.z}, b[3] = {zz, h, h};
+        add_level<3, G>(j, a, b, lc);
+    }
+    if (fe_is_zero(zc)) {
+        wk.carry = jac_from_affine(qx, qy, true);
+    } else {
+        wk.half[0] = h;
+        wk.half[1] = lc[1];
+        wk.half[2] = lc[0];
+        wk.half[3] = lc[2];
+        wk.inflight = true;
+    }
+}
+
+// The valid rows' words (j + P m) of the block of 32 rows at o (bit i of
+// `bits`: row i), loaded together; 0 for the others.
+template <int P>
+ZG_HD void madd_fill_load(uint32_t (&xv)[ZG_FLAG_ROWS][ZG_NW / P], const uint32_t* o,
+                          uint32_t bits, long row_words, long ncols, int j) {
+#pragma unroll
+    for (int i = 0; i < ZG_FLAG_ROWS; i++)
+#pragma unroll
+        for (int m = 0; m < ZG_NW / P; m++)
+            xv[i][m] = (bits >> i) & 1u ? o[i * row_words + (long)(j + m * P) * ncols] : 0u;
+}
+
+// Words j + P m of every row of column col: the x that the walk wrote at
+// each valid row, carried down the rows after it, x_0 before the first. A
+// block of 32 rows is written while the next block's valid words are in
+// flight, its valid bytes loaded a block earlier still. On the card the
+// threads of a warp fill 32 neighbouring columns, so that every store
+// writes a whole 128-byte line.
+template <int P>
+ZG_HD void madd_fill(long col, int j, const uint32_t* sx, const uint8_t* flags,
+                     uint32_t* out, long rows, long ncols) {
+    const long row_words = (long)ZG_NW * ncols;
+    uint32_t cur[ZG_NW / P];
+#pragma unroll
+    for (int m = 0; m < ZG_NW / P; m++) cur[m] = sx[(long)(j + m * P) * ncols + col];
+    uint32_t f[ZG_FLAG_ROWS];
+    madd_flag_loads<1>(f, flags, 0, rows, ncols, col, 0);
+    uint32_t bits = madd_flag_bits<1>(f, 0);
+    madd_flag_loads<1>(f, flags, ZG_FLAG_ROWS, rows, ncols, col, 0);
+    uint32_t xv[ZG_FLAG_ROWS][ZG_NW / P];
+    madd_fill_load<P>(xv, out + col, bits, row_words, ncols, j);
+#pragma unroll 1
+    for (long r0 = 0; r0 < rows; r0 += ZG_FLAG_ROWS) {
+        const uint32_t nbits = madd_flag_bits<1>(f, 0);
+        madd_flag_loads<1>(f, flags, r0 + 2 * ZG_FLAG_ROWS, rows, ncols, col, 0);
+        uint32_t nxv[ZG_FLAG_ROWS][ZG_NW / P];
+        madd_fill_load<P>(nxv, out + (r0 + ZG_FLAG_ROWS) * row_words + col, nbits, row_words,
+                          ncols, j);
+        uint32_t* o = out + r0 * row_words + col;
+#pragma unroll
+        for (int i = 0; i < ZG_FLAG_ROWS; i++) {
+            if (r0 + i >= rows) break;
+#pragma unroll
+            for (int m = 0; m < ZG_NW / P; m++) {
+                if ((bits >> i) & 1u) cur[m] = xv[i][m];
+                o[i * row_words + (long)(j + m * P) * ncols] = cur[m];
+            }
+        }
+        bits = nbits;
+#pragma unroll
+        for (int i = 0; i < ZG_FLAG_ROWS; i++)
+#pragma unroll
+            for (int m = 0; m < ZG_NW / P; m++) xv[i][m] = nxv[i][m];
+    }
+}
+
+// Thread j of the group of G threads that owns column col. The walk takes
+// the valid rows in order, the next one's x and y loaded while the group
+// steps through the one before; it writes the x of every valid row
+// (madd_fill writes the others).
+template <int G>
+ZG_HD void madd_walk(long col, int j, const uint32_t* sx, const uint32_t* sy,
+                     const uint8_t* flags, uint32_t* out, long rows, long ncols) {
+    if (rows <= 0) return;
+    MaddWalk wk;
+    wk.carry.x = fe_load(sx, ncols, col);
+    wk.carry.y = fe_load(sy, ncols, col);
+    wk.carry.z = fe_zero();
+    wk.inflight = false;
+#pragma unroll
+    for (int k = 0; k < 4; k++) wk.half[k] = fe_zero();
+    wk.pend = -1;
+    MaddFlags<G> fl;
+    fl.r0 = -ZG_FLAG_ROWS;
+    fl.bits = 0u;
+    madd_flag_loads<G>(fl.ahead, flags, 0, rows, ncols, col, j);
+    long v = madd_next_valid<G>(fl, flags, rows, ncols, col, j);
+    const long row_words = (long)ZG_NW * ncols;
+    Fe qx = fe_zero(), qy = fe_zero();
+    if (v < rows) {
+        qx = fe_load(sx + v * row_words, ncols, col);
+        qy = fe_load(sy + v * row_words, ncols, col);
+    }
+#pragma unroll 1
+    for (;;) {
+        // the next valid row's x and y, in flight during this step
+        const long nv = v < rows ? madd_next_valid<G>(fl, flags, rows, ncols, col, j) : rows;
+        Fe nqx = fe_zero(), nqy = fe_zero();
+        if (nv < rows) {
+            nqx = fe_load(sx + nv * row_words, ncols, col);
+            nqy = fe_load(sy + nv * row_words, ncols, col);
+        }
+        madd_walk_step<G>(wk, qx, qy, v < rows ? v : -1, out, ncols, col, j);
+        qx = nqx;
+        qy = nqy;
+        if (v >= rows) break;
+        v = nv;
+    }
+}
+
 #ifdef __CUDACC__
 template <int F>
 __global__ void field_chain_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out,
@@ -148,19 +433,11 @@ __global__ void field_chain_kernel(const uint32_t* a, const uint32_t* b, uint32_
     if (col < n) field_chain_column<F>(col, a, b, out, n, k);
 }
 
-// One kernel a body, each with its own name (ptxas reports them apart).
-#define ZG_BISECT_KERNEL(NAME, BODY)                                                   \
-    __global__ void NAME(const uint32_t* sx, const uint32_t* sy, const uint8_t* flags, \
-                         uint32_t* out, long rows, long ncols) {                       \
-        __shared__ uint32_t scratch[ZG_NW * ZG_BISECT_THREADS];                        \
-        const long col = ZG_COL_INDEX;                                                 \
-        if (col < ncols)                                                               \
-            scan_bisect_column<BODY>(col, sx, sy, flags, out, rows, ncols,             \
-                                     scratch + threadIdx.x, ZG_BISECT_THREADS);        \
-    }
-ZG_BISECT_KERNEL(scan_bisect_mul_smem_kernel, ZG_BISECT_MUL_SMEM)
-ZG_BISECT_KERNEL(scan_bisect_mul_reg_kernel, ZG_BISECT_MUL_REG)
-ZG_BISECT_KERNEL(scan_bisect_madd_kernel, ZG_BISECT_MADD)
+__global__ void scan_bisect_mul_reg_kernel(const uint32_t* sx, uint32_t* out, long rows,
+                                           long ncols) {
+    const long col = ZG_COL_INDEX;
+    if (col < ncols) mul_reg_column(col, sx, out, rows, ncols);
+}
 
 // Block: 32 lanes x ZG_TRIVIAL_WARPS warps, one chunk a warp; it walks the
 // tiles down its lanes.
@@ -189,6 +466,56 @@ scan_bisect_trivial_kernel(const uint32_t* sx, uint32_t* out, long rows,
         trivial_chunk_store(out, lanes, lane, r0, n, v, acc);
         __syncthreads();
     }
+}
+// Block: ZG_MUL_THREADS threads, `chunks` chunks of ZG_MUL_THREADS / chunks
+// neighbouring columns; word k of thread t's prefix at
+// tot[k * ZG_MUL_THREADS + t]. Every thread takes part in the prefix, a
+// column past the last or a chunk without rows with the Montgomery one.
+__global__ void __launch_bounds__(ZG_MUL_THREADS)
+scan_bisect_mul_smem_kernel(const uint32_t* sx, uint32_t* out, long rows, long ncols,
+                            int chunks) {
+    __shared__ uint32_t tot[ZG_NW * ZG_MUL_THREADS];
+    const int t = threadIdx.x;
+    const int span = ZG_MUL_THREADS / chunks;
+    const int c = t / span;
+    const long col = (long)blockIdx.x * span + t % span;
+    long r0, r1;
+    mul_chunk_rows(rows, chunks, c, r0, r1);
+    const bool live = col < ncols && r0 < r1;
+    Fe s = live ? mul_chunk_first(c, sx, out, r0, r1, ncols, col) : fe_one<0>();
+    fe_store(tot, ZG_MUL_THREADS, t, s);
+    __syncthreads();
+    // inclusive prefix of the chunk results over c (Hillis-Steele)
+#pragma unroll 1
+    for (int d = 1; d < chunks; d *= 2) {
+        Fe before;
+        if (c >= d) before = fe_load(tot + t - d * span, ZG_MUL_THREADS, 0);
+        __syncthreads();
+        if (c >= d) {
+            s = fe_mul<0>(before, s);
+            fe_store(tot, ZG_MUL_THREADS, t, s);
+        }
+        __syncthreads();
+    }
+    if (live && c > 0)
+        mul_walk(fe_load(tot + t - span, ZG_MUL_THREADS, 0), sx, out, r0, r1, ncols, col,
+                 true);
+}
+
+// Block: ZG_MADD_THREADS / ZG_MADD_GROUP columns. Each group walks its
+// column; once the block's walks are done (their writes seen by the block),
+// warp w fills words w + 4 m of the block's columns, a column a lane.
+__global__ void __launch_bounds__(ZG_MADD_THREADS)
+scan_bisect_madd_kernel(const uint32_t* sx, const uint32_t* sy, const uint8_t* flags,
+                        uint32_t* out, long rows, long ncols) {
+    const long col0 = (long)blockIdx.x * (ZG_MADD_THREADS / ZG_MADD_GROUP);
+    const int t = threadIdx.x;
+    if (col0 + t / ZG_MADD_GROUP < ncols)
+        madd_walk<ZG_MADD_GROUP>(col0 + t / ZG_MADD_GROUP, t % ZG_MADD_GROUP, sx, sy, flags,
+                                 out, rows, ncols);
+    __syncthreads();
+    if (col0 + t % 32 < ncols)
+        madd_fill<ZG_MADD_THREADS / 32>(col0 + t % 32, t / 32, sx, flags, out, rows, ncols);
 }
 #endif
 
@@ -244,13 +571,26 @@ static void scan_bisect_trivial_host(const uint32_t* sx, uint32_t* out, long row
     }
 }
 
-template <int BODY>
-static void scan_bisect_host(const uint32_t* sx, const uint32_t* sy,
-                             const uint8_t* flags, uint32_t* out, long rows,
-                             long ncols) {
-    uint32_t scratch[ZG_NW];
-    for (long col = 0; col < ncols; col++)
-        scan_bisect_column<BODY>(col, sx, sy, flags, out, rows, ncols, scratch, 1);
+
+// The device's chunks one after another: pass 1 of every chunk, the prefix
+// of their results in the device's rounds, then pass 2.
+static void scan_bisect_mul_smem_host(const uint32_t* sx, uint32_t* out, long rows,
+                                      long ncols) {
+    const int k = mul_chunks(rows, ncols);
+    Fe s[ZG_MUL_MAX_CHUNKS];
+    for (long col = 0; col < ncols; col++) {
+        long r0, r1;
+        for (int c = 0; c < k; c++) {
+            mul_chunk_rows(rows, k, c, r0, r1);
+            s[c] = mul_chunk_first(c, sx, out, r0, r1, ncols, col);
+        }
+        for (int d = 1; d < k; d *= 2)
+            for (int c = k - 1; c >= d; c--) s[c] = fe_mul<0>(s[c - d], s[c]);
+        for (int c = 1; c < k; c++) {
+            mul_chunk_rows(rows, k, c, r0, r1);
+            if (r0 < r1) mul_walk(s[c - 1], sx, out, r0, r1, ncols, col, true);
+        }
+    }
 }
 #endif
 
@@ -264,30 +604,37 @@ extern "C" int zg_scan_bisect(int body, const void* sx, const void* sy,
     const uint8_t* pf = (const uint8_t*)flags;
     uint32_t* po = (uint32_t*)out;
 #ifdef __CUDACC__
+    cudaStream_t st = (cudaStream_t)stream;
     if (ncols > 0 && body == ZG_BISECT_TRIVIAL) {
         const dim3 block(32, ZG_TRIVIAL_WARPS);
-        scan_bisect_trivial_kernel<<<ZG_BLOCKS(ZG_NW * ncols, 32), block, 0,
-                                     (cudaStream_t)stream>>>(px, po, rows, ZG_NW * ncols);
+        scan_bisect_trivial_kernel<<<ZG_BLOCKS(ZG_NW * ncols, 32), block, 0, st>>>(
+            px, po, rows, ZG_NW * ncols);
+    } else if (ncols > 0 && body == ZG_BISECT_MUL_SMEM) {
+        const int chunks = mul_chunks(rows, ncols);
+        scan_bisect_mul_smem_kernel<<<ZG_BLOCKS(ncols, ZG_MUL_THREADS / chunks),
+                                      ZG_MUL_THREADS, 0, st>>>(px, po, rows, ncols, chunks);
+    } else if (ncols > 0 && body == ZG_BISECT_MUL_REG) {
+        scan_bisect_mul_reg_kernel<<<ZG_BLOCKS(ncols, ZG_BISECT_THREADS), ZG_BISECT_THREADS,
+                                     0, st>>>(px, po, rows, ncols);
     } else if (ncols > 0) {
-        void (*kernel)(const uint32_t*, const uint32_t*, const uint8_t*, uint32_t*, long,
-                       long) =
-            body == ZG_BISECT_MUL_SMEM  ? scan_bisect_mul_smem_kernel
-            : body == ZG_BISECT_MUL_REG ? scan_bisect_mul_reg_kernel
-                                        : scan_bisect_madd_kernel;
-        kernel<<<ZG_BLOCKS(ncols, ZG_BISECT_THREADS), ZG_BISECT_THREADS, 0,
-                 (cudaStream_t)stream>>>(px, py, pf, po, rows, ncols);
+        scan_bisect_madd_kernel<<<ZG_BLOCKS(ncols * ZG_MADD_GROUP, ZG_MADD_THREADS),
+                                  ZG_MADD_THREADS, 0, st>>>(px, py, pf, po, rows, ncols);
     }
     return (int)cudaGetLastError();
 #else
     (void)stream;
-    if (body == ZG_BISECT_TRIVIAL)
+    if (body == ZG_BISECT_TRIVIAL) {
         scan_bisect_trivial_host(px, po, rows, ZG_NW * ncols);
-    else if (body == ZG_BISECT_MUL_SMEM)
-        scan_bisect_host<ZG_BISECT_MUL_SMEM>(px, py, pf, po, rows, ncols);
-    else if (body == ZG_BISECT_MUL_REG)
-        scan_bisect_host<ZG_BISECT_MUL_REG>(px, py, pf, po, rows, ncols);
-    else
-        scan_bisect_host<ZG_BISECT_MADD>(px, py, pf, po, rows, ncols);
+    } else if (body == ZG_BISECT_MUL_SMEM) {
+        scan_bisect_mul_smem_host(px, po, rows, ncols);
+    } else if (body == ZG_BISECT_MUL_REG) {
+        for (long col = 0; col < ncols; col++) mul_reg_column(col, px, po, rows, ncols);
+    } else {
+        for (long col = 0; col < ncols; col++) {
+            madd_walk<1>(col, 0, px, py, pf, po, rows, ncols);
+            madd_fill<1>(col, 0, px, pf, po, rows, ncols);
+        }
+    }
     return 0;
 #endif
 }

@@ -189,43 +189,6 @@ ZG_HD void jac_store_part(uint32_t* x, uint32_t* y, uint32_t* z, long stride, lo
     }
 }
 
-// The 11 products of the mixed add, in five levels whose products do not
-// depend on each other:
-//   1: Z1Z1                       2: U2 = qx Z1Z1, Z1 Z1Z1
-//   3: S2 = qy (Z1 Z1Z1), HH, Z3  4: HHH, V = X1 HH, RR
-//   5: R (V - X3), Y1 HHH
-// each with the operands of jac_madd_incomplete's, so every limb equals
-// its. Levels 4-5 of the add in flight (h, hh, s2 and z3 = Z1 H from its
-// levels 1-3, X1 and Y1 the settled carry's) run beside levels 1-2 of the
-// next row's add, whose Z1 is z3: two rounds of four products. Returns the
-// finished add's (X3, Y3, z3); u2 = qx Z1Z1 and zz = Z1 Z1Z1 of the next.
-template <int G>
-ZG_HD Jac madd_finish_start(const Jac& carry, const Fe (&half)[4], const Fe& qx, Fe& u2,
-                            Fe& zz, int j) {
-    const Fe& h = half[0];
-    const Fe& hh = half[1];
-    const Fe& z3 = half[3];
-    const Fe r = fe_sub<0>(half[2], carry.y);
-    Fe la[4];
-    {
-        const Fe a[4] = {h, carry.x, r, z3}, b[4] = {hh, hh, r, z3};
-        add_level<4, G>(j, a, b, la);
-    }
-    const Fe hhh = la[0], v = la[1];
-    Jac res;
-    res.x = fe_sub<0>(fe_sub<0>(la[2], hhh), fe_add<0>(v, v));
-    res.z = z3;
-    Fe lb[4];
-    {
-        const Fe a[4] = {r, carry.y, qx, z3}, b[4] = {fe_sub<0>(v, res.x), hhh, la[3], la[3]};
-        add_level<4, G>(j, a, b, lb);
-    }
-    res.y = fe_sub<0>(lb[0], lb[1]);
-    u2 = lb[2];
-    zz = lb[3];
-    return res;
-}
-
 // One row of the walk: row r of column col, whose operands are q (r ==
 // rows: the column's end, a flush into the final carry). The group runs
 // levels 4-5 of the add in flight beside levels 1-2 of this row's, then
