@@ -52,11 +52,22 @@ chained Fr products an element at n = 2^18, beside 16 launches of
 ``field_binop``; the four ``scan_bisect`` bodies at R = 1,024 rows and
 2,560 and 20,480 columns, each beside its bound counted by what its inputs
 need (``madd``: the valid rows) and the chain floor of its design
-(``madd``: the longest valid count of a column; ``mul_smem``: the chunked
-scan's depth, K chunks a column), beside ``flush_scan_affine`` at R x 2,560
+(``madd``: the longest valid count of a column; ``mul_smem`` and
+``mul_reg``: their chunked scans' depths, ``mul_reg`` its longest walk of
+interleaved rows, twice, and the rounds of its join), beside
+``flush_scan_affine`` at R x 2,560
 (its chain floor counts its longest segment), and ``torch.cumsum`` beside
 ``trivial``, which computes the same function. Their rows in the ``kernels`` line count the
 launches of that path (``launches_path``); no proof path runs them.
+
+Every ``bound_ms`` counts a Montgomery product as the IMAD-pipe issue
+slots that one ``fe_mul`` takes on the card (``bench.IMAD_SLOTS_PER_MUL``).
+The ``build`` phase prints, beside what ptxas reported, each kernel's
+registers and shared memory read from the built library by ``cuobjdump
+-res-usage``, and the slots of one product counted by opcode in the SASS of
+``field_chain``'s loop, and whether they equal that constant (a record, not
+a check). The ``env`` phase prints the card's highest SM clock, on which the
+peak rate of those slots rests.
 
 It prints one JSON object a line; any phase that fails raises and the run
 exits non-zero. Without a CUDA device it exits non-zero at once. The last
@@ -78,9 +89,9 @@ import numpy as np
 import torch
 
 from zerog_tpu_torch import kernels
-from zerog_tpu_torch.bench import (MADS_PER_MUL, bound, flush_scan_affine_bound,
+from zerog_tpu_torch.bench import (IMAD_SLOTS_PER_MUL, bound, flush_scan_affine_bound,
                                    gpu_line, segment_ids, time_ms, wall_ms)
-from zerog_tpu_torch.bench import field_chain, scan_bisect
+from zerog_tpu_torch.bench import field_chain, sass, scan_bisect
 from zerog_tpu_torch.field import FR, FQ, to_limbs, from_limbs, to_device
 from zerog_tpu_torch.field import pfield
 from zerog_tpu_torch.curve import Srs, pscan, pfold, pippenger
@@ -135,8 +146,10 @@ NTT_KERNELS = ("ntt_epilogue", "ntt_twiddle")
 # the measuring kernels: the path of the two benchmarks' entry points
 BENCH_KERNELS = ("field_chain",) + tuple(f"scan_bisect_{b}" for b in scan_bisect.BODIES)
 CHAIN_LOG_N = 18    # n of the field chain, bench_pallas_field.py's default
-# multiply-adds of one REDC of a 9-word value (8 words x 8 steps)
-MADS_PER_REDC = 64
+# IMAD-pipe issue slots of one REDC of a 9-word value (fe_redc9): 8 steps of
+# one mul.lo for m, 8 mad.lo and 8 mad.hi, counted from its PTX (it has no
+# loop of its own in the SASS to read them from)
+IMAD_SLOTS_PER_REDC = 136
 # the WNN model of the smoke run: MNIST-Tiny's shape, registered at k = 14
 # (28-bit filter inputs, 256-entry bloom arrays, 1 hash, 1 bit per input)
 TINY_SHAPE = (28, 256, 1, 1)
@@ -156,7 +169,10 @@ def phase_env():
     nvcc = subprocess.run([kernels._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     release = [l for l in nvcc.splitlines() if "release" in l]
-    info = dict(phase="env", gpu=gpu_line(),
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True).stdout.strip().splitlines()[0]
+    info = dict(phase="env", gpu=gpu_line(), clocks_max_sm=clock,
                 torch=torch.__version__, cuda=torch.version.cuda,
                 nvcc=release[0].strip() if release else nvcc.strip())
     emit(info)
@@ -166,11 +182,16 @@ def phase_env():
 # ---- phase 2: build -------------------------------------------------------------
 
 def phase_build():
+    """Build the kernels; print what ptxas reported, each kernel's registers
+    and shared memory as ``cuobjdump -res-usage`` reads them from the built
+    library, and the IMAD-pipe slots of one product read from its SASS
+    beside IMAD_SLOTS_PER_MUL (a record: a mismatch does not fail)."""
     t0 = time.time()
-    kernels.build(force=True)
+    path = kernels.build(force=True)
     kernels.lib()
     emit(dict(phase="build", seconds=round(time.time() - t0, 3),
-              ptxas=kernels.BUILD_INFO.get("ptxas", {})))
+              ptxas=kernels.BUILD_INFO.get("ptxas", {}), res_usage=sass.res_usage(path),
+              imad_slots_per_mul=sass.slots_per_mul(path)))
 
 
 # ---- phase 3: kernels against their plain versions ---------------------------------
@@ -215,12 +236,13 @@ def _fold_work(nz, flags=None):
 
 
 def _add_bounds(nbytes, nbytes_all_rows, work):
-    """bound_ms from the bytes and the adds (16 products of 128 multiply-adds
-    each) that the operands require, and beside it the bound that reads every
-    row and counts an add for every row."""
-    b, by = bound(nbytes, work["required_adds"] * MULS_ADD * MADS_PER_MUL)
+    """bound_ms from the bytes and the adds (16 products of
+    IMAD_SLOTS_PER_MUL issue slots each) that the operands require, and
+    beside it the bound that reads every row and counts an add for every
+    row."""
+    b, by = bound(nbytes, work["required_adds"] * MULS_ADD * IMAD_SLOTS_PER_MUL)
     return dict(bound_ms=b, bound_by=by, bound_all_rows_ms=bound(
-        nbytes_all_rows, work["all_rows_adds"] * MULS_ADD * MADS_PER_MUL)[0])
+        nbytes_all_rows, work["all_rows_adds"] * MULS_ADD * IMAD_SLOTS_PER_MUL)[0])
 
 
 def _scan_jac_bounds(r, ct, work):
@@ -554,7 +576,7 @@ def phase_kernels():
             plain1 = time_ms(lambda: pfield.field_binop_plain("mul", FQ, a, b),
                              reps=3)
             ms1_add = time_ms(lambda: pfield.field_binop_words("add", FQ, wa, wb))
-    b1, by1 = bound(3 * 32 * n1, MADS_PER_MUL * n1)
+    b1, by1 = bound(3 * 32 * n1, IMAD_SLOTS_PER_MUL * n1)
     # the same at 8 columns of the k = 17 Large shape, n = 2^20
     n_wide = 8 << 17
     rng_wide = np.random.default_rng(SEED + 17)   # rng's draws stay as they were
@@ -567,7 +589,7 @@ def phase_kernels():
         raise AssertionError(f"field_binop Fq.mul n={n_wide} != plain")
     del got, ref
     ms_wide = time_ms(lambda: pfield.field_binop_words("mul", FQ, wa, wb))
-    b_wide = bound(3 * 32 * n_wide, MADS_PER_MUL * n_wide)[0]
+    b_wide = bound(3 * 32 * n_wide, IMAD_SLOTS_PER_MUL * n_wide)[0]
     res["field_binop"] = dict(
         ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1, max_abs_err=worst,
         shape=f"Fq mul, n={n1}", add_ms=ms1_add, bound_share=b1 / ms1,
@@ -760,11 +782,11 @@ class _LevelRecorder:
 def _epilogue_bound(t, lanes, with_twiddle):
     elems = t * lanes
     nbytes = elems * (128 + 32) + 4 * lanes + 4 * 32 * t
-    mads = elems * MADS_PER_REDC
+    slots = elems * IMAD_SLOTS_PER_REDC
     if with_twiddle:
         nbytes += elems * 32
-        mads += elems * MADS_PER_MUL
-    return bound(nbytes, mads)
+        slots += elems * IMAD_SLOTS_PER_MUL
+    return bound(nbytes, slots)
 
 
 def _check_engine_kernels(rec, rng, n, res, levels_out):
@@ -829,7 +851,7 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
         copy_ms = time_ms(regroup, reps=5)
         elems = s * lanes
         b_ms, b_by = bound(elems * 64 + 32 * s * r + 4 * s * g,
-                           elems * MADS_PER_MUL)
+                           elems * IMAD_SLOTS_PER_MUL)
         w = res["ntt_twiddle"]
         w["ms"] += ms
         w["plain_ms"] += plain
@@ -1394,7 +1416,7 @@ def main():
                     "ms_wide", "wide_shape", "wide_over_narrow", "bound_wide_ms",
                     "chain_floor_ms", "carried_floor_ms", "plain_rows",
                     "chain_products", "chain_floor_wide_ms", "longest_valid",
-                    "chunks", "chunks_wide",
+                    "chunks", "chunks_wide", "chains",
                     "chained_ms", "chained_bound_ms", "ns_per_product",
                     "product_latency_us", "mproducts_per_s"):
             if key in r:

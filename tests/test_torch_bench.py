@@ -34,6 +34,9 @@ from zerog_tpu_torch.field import FR, from_limbs
 torch.set_num_threads(1)
 
 LANES = 128
+# field_chain's bound at n = 2^18, k = 16: 2^18 x 16 x IMAD_SLOTS_PER_MUL
+# slots at 16.75e12 a second
+WORKED_CHAIN_BOUND_MS = 0.064104
 
 
 def _body_params(pf):
@@ -142,3 +145,40 @@ def test_madd_matches_the_pscan_madd_looped_over_rows():
         px, py, pz = _madd_incomplete(px, py, pz, _limb_list(sx[r]),
                                       _limb_list(sy[r]), qv)
         assert torch.equal(_from_limb_list(px), got[r]), r
+
+
+def test_operation_bounds_count_a_product_as_its_imad_slots():
+    """The operation bounds of ``field_chain`` and of the bisection count a
+    Montgomery product as IMAD_SLOTS_PER_MUL issue slots (read from the
+    product's SASS) at PEAK_INT32_MAD_PER_S: n = 2^18, k = 16 is n k slots /
+    peak, operations over 96 bytes an element."""
+    from zerog_tpu_torch.bench import IMAD_SLOTS_PER_MUL, PEAK_INT32_MAD_PER_S, bound
+
+    n, k = 1 << 18, 16
+    ms, by = fc.chain_bound(n, k)
+    assert by == "operations"
+    assert ms == pytest.approx(n * k * IMAD_SLOTS_PER_MUL / PEAK_INT32_MAD_PER_S * 1e3)
+    assert ms == pytest.approx(WORKED_CHAIN_BOUND_MS, rel=1e-4)
+    assert fc.chain_bound(n, 1)[0] == pytest.approx(3 * 32 * n / 3.35e12 * 1e3)
+    rows, cols = sb.ROWS, sb.COLS
+    # every row added: 11 products a row of madd, operations
+    ms, by = sb.bisect_bound("madd", rows, cols)
+    assert by == "operations"
+    assert ms == pytest.approx(rows * cols * 11 * IMAD_SLOTS_PER_MUL
+                               / PEAK_INT32_MAD_PER_S * 1e3)
+    # by the valid rows: an add for each after its column's first
+    flags = torch.zeros((rows, cols), dtype=torch.uint8)
+    flags[::4] = 1
+    _, adds, _ = sb.madd_counts(flags)
+    assert adds == (rows // 4 - 1) * cols
+    ms, by = sb.bisect_bound("madd", rows, cols, flags)
+    assert ms == pytest.approx(max(bound(33 * rows * cols + 64 * (rows // 4) * cols
+                                         + 32 * cols, 0)[0],
+                                   adds * 11 * IMAD_SLOTS_PER_MUL
+                                   / PEAK_INT32_MAD_PER_S * 1e3))
+    # one product a row: bytes bound the mul bodies, the slots beside them
+    for body in ("mul_smem", "mul_reg"):
+        ms, by = sb.bisect_bound(body, rows, cols)
+        assert by == "bytes"
+        assert ms == pytest.approx(64 * rows * cols / 3.35e12 * 1e3)
+        assert ms > rows * cols * IMAD_SLOTS_PER_MUL / PEAK_INT32_MAD_PER_S * 1e3

@@ -8,7 +8,10 @@ thread; ``flush_scan_jac``: every (row slice, column) pair; ``sum_rows``:
 every lane of every job; ``weighted_fold``: every lane, its two adds of a
 row in one thread; ``ntt_epilogue``: every element; ``scan_bisect``
 ``trivial``: every word lane, its chunk totals first, then the running sums
-from each chunk's offset). That tests the control logic of the kernels —
+from each chunk's offset; ``mul_reg``: every column, pass 1 of the J
+interleaved chunks of each of its four lane groups, the join of their
+results in the card's shuffle rounds, then the second walk). That tests
+the control logic of the kernels —
 the segment walks of both scans, the mixed add's levels overlapped across
 rows, the identity cases, the job table of ``sum_rows``, the weighted
 fold's rows loaded ahead, the epilogue's carries, REDC and four output
@@ -526,6 +529,45 @@ def test_mul_chunk_plan_mirrors_csrc():
         assert m and int(m.group(1)) == getattr(scan_bisect, f"MUL_{name}"), name
     assert [scan_bisect.mul_chunks(1024, c) for c in (2560, 20480, 40)] == [32, 8, 32]
     assert scan_bisect.mul_depth(1024, 2560) == 32 + 5 + 32
+
+
+# (R, C) of each mul_reg case: K = 8 chunks a column, J = 2 of them a thread
+MUL_REG_CASES = {
+    "chunk_edges": (256, 9),                 # 8 chunks of exactly 32 rows
+    "ragged_last_chunk": (300, 5),           # 7 of 38 rows, one of 34
+    "rows_below_k_times_j": (12, 4),         # 6 chunks of 2 rows, 2 empty
+    "columns_not_multiple_of_8": (64, 13),   # on the card a warp of 5 columns
+    "columns_not_multiple_of_32": (100, 37),  # and 13 rows a chunk, the last 9
+    "single_row": (1, 11),                   # chunk 0 alone, 7 empty
+}
+
+
+@pytest.mark.parametrize("case", list(MUL_REG_CASES))
+def test_scan_bisect_mul_reg_host_build_chunks(host_lib, case):
+    """zg_scan_bisect's ``mul_reg`` in the device's plan, one column at a
+    time: pass 1 of the J interleaved chunks of each of the four lane
+    groups, each group's prefix, the scan over the groups in the device's
+    rounds, pass 2; chunks of exactly L rows, a ragged last chunk, R below
+    K x J with empty chunks, C not a multiple of 8 or of 32, a single row."""
+    r, c = MUL_REG_CASES[case]
+    sx, sy, flags = scan_bisect.make_inputs(r, c,
+                                            seed=list(MUL_REG_CASES).index(case) + 70)
+    _bisect_host(host_lib, "mul_reg", sx, sy, flags)
+
+
+def test_mul_reg_plan_mirrors_csrc():
+    """The plan of scan_bisect.mul_reg_depth (its chain floor) uses the
+    constants of csrc/bench.cu: four lane groups of 8 columns, J = 2 chunks
+    a thread, K = 8 a column."""
+    with open(os.path.join(kernels.CSRC_DIR, "bench.cu")) as f:
+        src = f.read()
+    for name in ("GROUPS", "CHAINS"):
+        m = re.search(rf"#define ZG_MULREG_{name} (\d+)", src)
+        assert m and int(m.group(1)) == getattr(scan_bisect, f"MULREG_{name}"), name
+    m = re.search(r"#define ZG_MULREG_SPAN (\d+)", src)
+    assert m and int(m.group(1)) * scan_bisect.MULREG_GROUPS == 32
+    assert scan_bisect.mul_reg_depth(1024) == 2 * 128 + 1 + 2 + 1
+    assert scan_bisect.mul_reg_depth(300) == 2 * 38 + 1 + 2 + 1
 
 
 # ---- weighted_fold ----------------------------------------------------------------

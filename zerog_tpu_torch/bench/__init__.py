@@ -20,20 +20,29 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["PEAK_BYTES_PER_S", "PEAK_INT32_MAD_PER_S", "MADS_PER_MUL",
+__all__ = ["PEAK_BYTES_PER_S", "PEAK_INT32_MAD_PER_S", "IMAD_SLOTS_PER_MUL",
            "random_words", "time_ms", "wall_ms", "bound",
            "flush_scan_affine_bound", "segment_ids", "gpu_line"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
 # memory; 67 TFLOP/s float32 outside the tensor cores = 33.5e12 fused
-# multiply-adds a second, and the 32-bit integer multiply-add units are half
-# as many as the float32 ones: 132 SMs x 64 lanes x 1.98 GHz = 16.7e12 a
-# second.
+# multiply-adds a second, and the pipe that issues 32-bit integer
+# multiply-adds (IMAD) takes half as many lanes: 132 SMs x 64 lanes x 1.98
+# GHz (the card's clocks.max.sm) = 16.7e12 issue slots a second.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_MAD_PER_S = 16.75e12
-# 32-bit multiply-adds of one Montgomery product of 8-word operands: 64 for
-# the product, 64 for the reduction. Adds, subs and selects are left out.
-MADS_PER_MUL = 128
+# IMAD-pipe issue slots of one Montgomery product of 8-word operands
+# (fe_mul<F> of csrc/field.cuh) on sm_90a: the loop of field_chain_kernel<1>,
+# one product an iteration, read by `python -m zerog_tpu_torch.bench.sass`
+# (cuobjdump -sass of the built library). IMAD, IMAD.HI, IMAD.X, IMAD.MOV,
+# IMAD.IADD and IMAD.SHL take one slot, IMAD.WIDE two. Read with nvcc 12.9
+# for an NVIDIA H100 80GB HBM3: 119 IMAD.WIDE (22 IMAD.WIDE.U32, 97
+# IMAD.WIDE.U32.X) = 238 slots, 9 IMAD.HI.U32, 9 IMAD; no IMAD.X, IMAD.MOV,
+# IMAD.IADD or IMAD.SHL. ptxas fuses the PTX's mad.lo / madc.hi pairs into
+# IMAD.WIDE, so the 264 multiply-adds of the PTX take 256 slots. The loop's
+# other 50 instructions (38 IADD3, 8 LOP3.LUT, the loop's count and branch)
+# run on other pipes and are left out.
+IMAD_SLOTS_PER_MUL = 256
 
 
 def random_words(rng: np.random.Generator, shape) -> torch.Tensor:
@@ -82,11 +91,11 @@ def wall_ms(fn):
     return out, (time.time() - t0) * 1e3
 
 
-def bound(nbytes, mads):
+def bound(nbytes, slots):
     """(ms, "bytes" or "operations"): the larger of the bytes over the memory
-    rate and the 32-bit multiply-adds over their peak rate."""
+    rate and the IMAD-pipe issue slots over their peak rate."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = mads / PEAK_INT32_MAD_PER_S * 1e3
+    to = slots / PEAK_INT32_MAD_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -99,7 +108,7 @@ def flush_scan_affine_bound(rows, cols, valid_rows=None, adds=None):
     valid_rows = n if valid_rows is None else valid_rows
     adds = n if adds is None else adds
     return bound(n * (2 + 3 * 32) + 2 * 32 * valid_rows + 3 * 32 * cols,
-                 adds * 11 * MADS_PER_MUL)
+                 adds * 11 * IMAD_SLOTS_PER_MUL)
 
 
 def segment_ids(flags):

@@ -3,8 +3,9 @@ turns: ``ntt_twiddle`` and ``ntt_epilogue`` at every level of the WNN
 proof's forward transforms (2^14 and 2^17, six columns), ``field_binop``
 (Fq product) at n = 2^17 and 2^20, ``weighted_fold`` at the MSM's shape
 (K = 128 rows, 16 lanes) on dense rows and on rows that are mostly the
-identity, and the ``scan_bisect`` bodies ``madd`` and ``mul_smem`` at
-R = 1,024 rows x 2,560 and 20,480 columns (the benchmark's inputs).
+identity, and the ``scan_bisect`` bodies ``madd``, ``mul_smem`` and
+``mul_reg`` at R = 1,024 rows x 2,560 and 20,480 columns (the benchmark's
+inputs).
 
     python -m zerog_tpu_torch.bench.ab DIR[:sum|:nocheck] [DIR ...] [--cases K,..]
 
@@ -14,8 +15,10 @@ under ``_build/``, runs every case on each library in turns (A B .. B A, so
 that drift on the card falls on both alike), holds their outputs equal word
 for word, and prints one JSON line a case with each library's ms (the median
 of its turns, each turn the median of 5 runs by :func:`time_ms`), then one
-line with each library's ``ptxas`` report of the kernels, and the card's
-name and power limit. It raises without a card or if two libraries disagree.
+line with each library's ``ptxas`` report of the kernels and their
+registers and shared memory read by ``cuobjdump -res-usage``, and the
+card's name and power limit. It raises without a card or if two libraries
+disagree.
 
 A ``ntt_twiddle`` case is what the engine runs between a level's inner
 transforms and its outer product: this tree's ``zg_ntt_twiddle`` writes the
@@ -48,7 +51,7 @@ from ..curve.jpoints import jac_double, jac_from_affine, points_to_device
 from ..curve.bn254 import G1_GEN
 from ..poly import pntt
 from ..poly.ntt import NttPlan
-from . import gpu_line, random_words, time_ms, scan_bisect
+from . import gpu_line, random_words, sass, time_ms, scan_bisect
 
 __all__ = ["epilogue_cases", "twiddle_cases", "binop_cases", "weighted_cases",
            "bisect_cases", "main"]
@@ -196,14 +199,15 @@ def weighted_cases(seed=2, k=128, lanes=16):
 
 
 def bisect_cases():
-    """``scan_bisect`` ``madd`` and ``mul_smem`` on the benchmark's inputs:
-    R = ROWS rows of COLS and WIDE columns, flags at 10 %."""
+    """``scan_bisect`` ``madd``, ``mul_smem`` and ``mul_reg`` on the
+    benchmark's inputs: R = ROWS rows of COLS and WIDE columns, flags at
+    10 %."""
     wide_in = [t.to(DEV) for t in scan_bisect.make_inputs(scan_bisect.ROWS,
                                                           scan_bisect.WIDE)]
     cases = []
     for cols in (scan_bisect.COLS, scan_bisect.WIDE):
         sx, sy, flags = (t[..., :cols].contiguous() for t in wide_in)
-        for body in ("madd", "mul_smem"):
+        for body in ("madd", "mul_smem", "mul_reg"):
             cases.append((f"scan_bisect_{body} R={scan_bisect.ROWS} x {cols} columns",
                           _launcher("zg_scan_bisect",
                                     (scan_bisect.BODIES.index(body), sx.data_ptr(),
@@ -214,6 +218,9 @@ def bisect_cases():
     return cases
 
 
+# the kernels whose build reports the last line gives
+AB_KERNELS = ("weighted_fold_kernel", "ntt_epilogue_kernel", "ntt_twiddle_kernel",
+              "field_binop_kernel", "scan_bisect_")
 CASES = {"twiddle": twiddle_cases, "binop": binop_cases, "epilogue": epilogue_cases,
          "weighted": weighted_cases, "bisect": bisect_cases}
 
@@ -259,7 +266,7 @@ def main(argv=None):
     torch.cuda.set_device(DEV)
     names = ["this tree"] + args
     dirs = [kernels.CSRC_DIR] + [os.path.abspath(a.split(":")[0]) for a in args]
-    libs, specs, ptxas = [], [], {}
+    libs, specs, ptxas, usage = [], [], {}, {}
     for i, src in enumerate(dirs):
         path = kernels.build(force=True, csrc_dir=src,
                              build_dir=os.path.join(kernels.BUILD_DIR, f"ab{i}"))
@@ -271,9 +278,9 @@ def main(argv=None):
         libs.append(lib)
         specs.append(spec)
         ptxas[names[i]] = {k: v for k, v in kernels.BUILD_INFO["ptxas"].items()
-                           if k.startswith(("weighted_fold_kernel", "ntt_epilogue_kernel",
-                                            "ntt_twiddle_kernel", "field_binop_kernel",
-                                            "scan_bisect_"))}
+                           if k.startswith(AB_KERNELS)}
+        usage[names[i]] = {k: v for k, v in sass.res_usage(path).items()
+                           if k.startswith(AB_KERNELS)}
     order = list(range(len(libs))) + list(range(len(libs)))[::-1]
     for name, build, _ in [case for kind in kinds for case in CASES[kind]()]:
         runs = [build(lib, spec) for lib, spec in zip(libs, specs)]
@@ -293,7 +300,7 @@ def main(argv=None):
                                                  if not n.endswith(":nocheck")], ms={
             label: statistics.median(v) for label, v in turns.items()},
             turns_ms=turns)), flush=True)
-    print(json.dumps(dict(ptxas=ptxas, gpu=gpu_line())), flush=True)
+    print(json.dumps(dict(ptxas=ptxas, res_usage=usage, gpu=gpu_line())), flush=True)
 
 
 if __name__ == "__main__":

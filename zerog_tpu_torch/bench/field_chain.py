@@ -22,9 +22,10 @@ operands only, so no input is at or above p.
 
 Kernel note — ``field_chain`` replaces ``fused16`` of
 ``scripts/bench_pallas_field.py``. One thread an element over word planes
-``int32[8, n]``: it reads 64 bytes, does k products (128 32-bit
-multiply-adds each) with the running value in registers, and writes 32
-bytes. At k = 16 the operations bound it on this card (n = 2^18: 0.032 ms
+``int32[8, n]``: it reads 64 bytes, does k products (IMAD_SLOTS_PER_MUL
+issue slots of the multiply-add pipe each, read from the kernel's SASS) with
+the running value in registers, and writes 32 bytes. At k = 16 the
+operations bound it on this card (:func:`chain_bound`: n = 2^18, 0.0641 ms
 against 0.0075 ms of bytes). The design keeps every thread independent and
 the planes coalesced, so that its time at full occupancy, beside the latency
 of one dependent chain (:func:`product_latency_us`), says what one product
@@ -44,10 +45,11 @@ from ..device import resolve_device
 from ..field import FR, from_limbs, to_limbs
 from ..field.params import FieldParams, NLIMB
 from ..field.pfield import field_binop_plain, field_binop_words
-from . import MADS_PER_MUL, bound, gpu_line, random_words, time_ms, wall_ms
+from . import IMAD_SLOTS_PER_MUL, bound, gpu_line, random_words, time_ms, wall_ms
 
 __all__ = ["field_chain", "field_chain_words", "field_chain_plain",
-           "head_values", "make_inputs", "product_latency_us", "run", "check", "main"]
+           "head_values", "make_inputs", "product_latency_us", "chain_bound", "run",
+           "check", "main"]
 
 DEFAULT_K = 16
 SEED = 5            # the TPU script's
@@ -133,6 +135,13 @@ def product_latency_us(params: FieldParams, device) -> float:
             * 1e3 / LATENCY_K)
 
 
+def chain_bound(n: int, k: int = DEFAULT_K):
+    """bound() of one launch of ``field_chain`` over n elements: a and b
+    read and the result written (96 bytes an element), k products of
+    IMAD_SLOTS_PER_MUL issue slots each."""
+    return bound(3 * 32 * n, IMAD_SLOTS_PER_MUL * k * n)
+
+
 def run(params: FieldParams, log_n: int, device):
     """The benchmark: the fused chain of DEFAULT_K products, as many launches
     of ``field_binop`` and the plain version, each timed on the card at
@@ -152,10 +161,10 @@ def run(params: FieldParams, log_n: int, device):
     plain_out, plain_ms = wall_ms(lambda: field_chain_plain(params, la, lb, k))
     ms = time_ms(lambda: field_chain_words(params, a, b, k))
     chained_ms = time_ms(chained)
-    bms, by = bound(3 * 32 * n, MADS_PER_MUL * k * n)
+    bms, by = chain_bound(n, k)
     res = dict(shape=f"{params.name}, n={n}, k={k}", ms=ms, chained_ms=chained_ms,
                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-               chained_bound_ms=k * bound(3 * 32 * n, MADS_PER_MUL * n)[0],
+               chained_bound_ms=k * chain_bound(n, 1)[0],
                ns_per_product=ms * 1e6 / (k * n),
                mproducts_per_s=dict(chained=k * n / chained_ms / 1e3,
                                     fused=k * n / ms / 1e3,

@@ -16,9 +16,12 @@ carry's x.
   a chunked scan, K chunks a column (:func:`mul_chunks`), the chunk results
   joined by a log-depth prefix in shared memory, about 2 R C products with
   a chain of 2 L + log2 K (:func:`mul_depth`) instead of R.
-- ``mul_reg``: the same function in kernel 2's first design, kept until it
-  is redesigned: one thread a column, one warp a block, the R rows walked in
-  order, the carry in registers.
+- ``mul_reg``: the same function as a chunked scan whose chunk results meet
+  in registers: a warp owns 8 neighbouring columns, each of its four lane
+  groups J = 2 chunks of a column (K = 8 a column), walked side by side;
+  the chunk results are joined by warp shuffles in two rounds, with no
+  shared memory, and the rows walked again from their chunk's start. About
+  2 R C products with a chain of 2 L + J + 2 (:func:`mul_reg_depth`).
 - ``madd``: carry <- ``jac_madd_incomplete(carry, x_r, y_r, flag_r)`` from
   (x_0, y_0, 0): kernel 2's mixed add, 11 products a valid row. An invalid
   row leaves the carry as it is, so the kernel walks the valid rows only,
@@ -33,10 +36,10 @@ and ``flush_scan_affine`` at R x C, each beside its bound (counted by what
 the inputs need; ``bound_all_rows_ms`` every row read and added) and its
 design's chain floor (the products on its longest dependent chain x the
 latency of one product in a dependent chain, measured in the same run:
-``madd`` the longest valid count x 3 carried products, ``mul_smem`` the
-chunked scan's depth, ``mul_reg`` R); then checks every body against the
-plain version. A time that stays flat from C to 8 C columns is bound by the
-chain with the card mostly idle; one that grows 8x had the card full
+``madd`` the longest valid count x 3 carried products, ``mul_smem`` and
+``mul_reg`` their chunked scans' depths); then checks every body against
+the plain version. A time that stays flat from C to 8 C columns is bound by
+the chain with the card mostly idle; one that grows 8x had the card full
 already. It runs on the card and raises without one.
 
 :func:`scan_bisect` takes limb tensors on either device: a CPU tensor goes
@@ -58,12 +61,12 @@ Kernel note — ``scan_bisect_{trivial,mul_smem,mul_reg,madd}`` replace the
 bodies ``k_trivial``, ``k_mul``, ``k_mul_reg`` and ``k_madd`` of
 ``scripts/bench_pscan_bisect.py`` (``run``). ``trivial`` and the two
 ``mul`` bodies are bound by bytes (64 R C: a row read, the carry written;
-the products of ``mul`` take less), ``madd`` by operations (11 x 128
-multiply-adds a valid row after its column's first). ``trivial`` loads its
-rows together, ``mul_smem`` regroups its product into chunks and ``madd``
-skips its invalid rows (``csrc/bench.cu`` says how); ``mul_reg`` keeps the
-first design, a chain of R products a column with only C / 32 warps in
-flight, until it is redesigned.
+the R C products of ``mul`` take less), ``madd`` by what its valid rows
+need (11 products of IMAD_SLOTS_PER_MUL issue slots a valid row after its
+column's first). ``trivial`` loads its rows together, the two ``mul``
+bodies regroup their product into chunks joined in shared memory
+(``mul_smem``) or by warp shuffles (``mul_reg``), and ``madd`` skips its
+invalid rows (``csrc/bench.cu`` says how).
 """
 
 from __future__ import annotations
@@ -76,13 +79,13 @@ from ..curve.jpoints import jac_madd_incomplete
 from ..curve.pscan import flush_scan_affine_words
 from ..device import resolve_device
 from ..field import FQ, jfq
-from . import (MADS_PER_MUL, bound, flush_scan_affine_bound, gpu_line,
+from . import (IMAD_SLOTS_PER_MUL, bound, flush_scan_affine_bound, gpu_line,
                random_words, segment_ids, time_ms, wall_ms)
 from .field_chain import product_latency_us
 
 __all__ = ["BODIES", "scan_bisect", "scan_bisect_words", "scan_bisect_plain",
-           "make_inputs", "bisect_bound", "mul_chunks", "mul_depth", "madd_counts",
-           "run", "check", "main"]
+           "make_inputs", "bisect_bound", "mul_chunks", "mul_depth", "mul_reg_depth",
+           "madd_counts", "run", "check", "main"]
 
 BODIES = ("trivial", "mul_smem", "mul_reg", "madd")
 ROWS = 1024
@@ -98,6 +101,10 @@ CARRIED_PRODUCTS = {"trivial": 0, "mul_smem": 1, "mul_reg": 1, "madd": 3}
 MUL_MAX_CHUNKS = 32
 MUL_MIN_ROWS = 8
 MUL_FILL = 131072
+# mul_reg's plan, as csrc/bench.cu has it (ZG_MULREG_*): lane groups of a
+# warp, and J, the chunks of a thread
+MULREG_GROUPS = 4
+MULREG_CHAINS = 2
 
 
 def scan_bisect_plain(body: str, sx, sy, flags):
@@ -206,6 +213,16 @@ def mul_depth(rows: int, cols: int) -> int:
     return first + (k - 1).bit_length() + max(spans[1:])
 
 
+def mul_reg_depth(rows: int) -> int:
+    """Dependent products on ``scan_bisect_mul_reg``'s longest chain: pass 1
+    (L = ceil(R / K) steps of its interleaved walks, chunk 0 the longest),
+    the thread's prefix of its J results (J - 1), the scan over the four
+    lane groups (2 rounds), a chunk's start (1), then pass 2 (L steps)."""
+    length = -(-rows // (MULREG_GROUPS * MULREG_CHAINS))
+    return (2 * length + (MULREG_CHAINS - 1) + (MULREG_GROUPS - 1).bit_length()
+            + 1)
+
+
 def madd_counts(flags):
     """(valid rows, required adds, longest valid count of a column) of
     flags [R, C]: every valid row after its column's first is an add (the
@@ -217,17 +234,18 @@ def madd_counts(flags):
 
 def bisect_bound(body: str, rows: int, cols: int, flags=None):
     """(ms, by) of one launch, counted by what the inputs need: a row of x
-    read and the carry's x written; the products' multiply-adds. ``madd``
-    with `flags`: x of every row written, its flag read, x and y of the
-    valid rows and x of row 0 read, 11 products an add (:func:`madd_counts`).
+    read and the carry's x written; the products' IMAD-pipe issue slots.
+    ``madd`` with `flags`: x of every row written, its flag read, x and y of
+    the valid rows and x of row 0 read, 11 products an add
+    (:func:`madd_counts`).
     Without `flags` every row is read and added (``bound_all_rows_ms``)."""
     n = rows * cols
     if body == "madd" and flags is not None:
         valid, adds, _ = madd_counts(flags)
         return bound(33 * n + 64 * valid + 32 * cols,
-                     adds * PRODUCTS["madd"] * MADS_PER_MUL)
+                     adds * PRODUCTS["madd"] * IMAD_SLOTS_PER_MUL)
     return bound((97 if body == "madd" else 64) * n,
-                 PRODUCTS[body] * MADS_PER_MUL * n)
+                 PRODUCTS[body] * IMAD_SLOTS_PER_MUL * n)
 
 
 def _chain(body, rows, cols, flags):
@@ -236,6 +254,8 @@ def _chain(body, rows, cols, flags):
         return madd_counts(flags)[2] * CARRIED_PRODUCTS["madd"]
     if body == "mul_smem":
         return mul_depth(rows, cols)
+    if body == "mul_reg":
+        return mul_reg_depth(rows)
     return rows * CARRIED_PRODUCTS[body]
 
 
@@ -276,6 +296,9 @@ def run(device):
         if body == "mul_smem":
             res[body]["chunks"] = mul_chunks(rows, cols)
             res[body]["chunks_wide"] = mul_chunks(rows, wide)
+        if body == "mul_reg":
+            res[body]["chains"] = MULREG_CHAINS
+            res[body]["chunks"] = MULREG_GROUPS * MULREG_CHAINS
     # kernel 2 itself on the same rows, valid at 99 % and flags at 2.5 % as
     # in the kernel check of chip_smoke.py
     rng = np.random.default_rng(SEED + 1)

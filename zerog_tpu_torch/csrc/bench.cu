@@ -5,8 +5,10 @@
 // `kernel`): x <- x * b (Montgomery) k times an element in one launch, so
 // that no word goes to device memory between the products. One thread an
 // element over word planes uint32[8, n]. An element reads 64 bytes, writes
-// 32 and does 128 k multiply-adds; at k = 16 the operations bound it (0.032
-// ms at n = 2^18 against 0.0075 ms of bytes). The design is the plainest
+// 32 and does k products of 256 multiply-add pipe slots each (its SASS:
+// 119 IMAD.WIDE of two slots, 18 IMAD of one); at k = 16 the operations
+// bound it (0.064 ms at n = 2^18 against 0.0075 ms of bytes), and its loop is
+// where the count of a product is read. The design is the plainest
 // one that reaches that bound if the card can: every thread independent,
 // coalesced planes, the chain in registers. Its time at full occupancy
 // against the latency of one dependent chain says what a product costs the
@@ -24,17 +26,12 @@
 //             together, not one round trip a row;
 //   mul_smem  carry <- carry * x_r (Fq) from x_0: a chunked scan whose chunk
 //             results meet in shared memory (see its note below);
-//   mul_reg   the same function in the first design of kernel 2, kept until
-//             it is redesigned: one thread a column, one warp a block, the R
-//             rows walked in order with one round trip to memory a row, the
-//             carry in registers. It is bound by its chain of R dependent
-//             products, with only C / 32 warps in flight;
+//   mul_reg   the same function as a chunked scan whose chunk results meet
+//             in registers, by warp shuffles (see its note below);
 //   madd      carry <- jac_madd_incomplete(carry, x_r, y_r, flag_r != 0) from
 //             (x_0, y_0, 0), kernel 2's mixed add: only the valid rows cost
 //             products (see its note below).
 #include "field.cuh"
-
-#define ZG_BISECT_THREADS 32  // mul_reg: one warp a block, as kernel 2's first design
 
 template <int F>
 ZG_HD void field_chain_column(long col, const uint32_t* a, const uint32_t* b,
@@ -47,20 +44,6 @@ ZG_HD void field_chain_column(long col, const uint32_t* a, const uint32_t* b,
 }
 
 enum { ZG_BISECT_TRIVIAL = 0, ZG_BISECT_MUL_SMEM, ZG_BISECT_MUL_REG, ZG_BISECT_MADD };
-
-// mul_reg: one column, its rows in order.
-ZG_HD void mul_reg_column(long col, const uint32_t* sx, uint32_t* out, long rows,
-                          long ncols) {
-    if (rows <= 0) return;
-    const long row_words = (long)ZG_NW * ncols;
-    Fe carry = fe_load(sx, ncols, col);
-#pragma unroll 1
-    for (long r = 0; r < rows; r++) {
-        const long off = r * row_words;
-        carry = fe_mul<0>(carry, fe_load(sx + off, ncols, col));
-        fe_store(out + off, ncols, col, carry);
-    }
-}
 
 // trivial: the word planes [R, 8, C] are a matrix [R, 8 C] of independent
 // word lanes (lane k C + c: word k of column c). The rows are cut into
@@ -182,6 +165,127 @@ ZG_HD Fe mul_chunk_first(int c, const uint32_t* sx, uint32_t* out, long r0, long
     const Fe first = fe_load(sx + r0 * ZG_NW * ncols, ncols, col);
     return c == 0 ? mul_walk(first, sx, out, r0, r1, ncols, col, true)
                   : mul_walk(first, sx, out, r0 + 1, r1, ncols, col, false);
+}
+
+// ---- mul_reg: the prefix product as a chunked scan joined in registers ------------
+// Replaces k_mul_reg (bench_pscan_bisect.py:104), the register-carry variant
+// of k_mul: the same function as mul_smem, whose bound and regrouping hold
+// here too. The chunk results of a column meet inside one warp, by
+// __shfl_up_sync of their 8 words: no shared memory, no block barrier. A
+// warp owns ZG_MULREG_SPAN neighbouring columns, and lane group g (lanes
+// 8 g .. 8 g + 7, one column each) owns chunks g J .. g J + J - 1 of its
+// column (J = ZG_MULREG_CHAINS), K = 4 J = 8 chunks of L = ceil(R / 8) rows
+// (mul_chunk_rows). The eight lanes of a group load the same row of the same
+// word plane for eight neighbouring columns: whole 32-byte sectors. A thread
+// walks its J chunks side by side, J independent carries, each step's J
+// products in one basic block; each step's rows are loaded during the step
+// before, and the planes are __restrict__, so that no load waits on an
+// earlier store. Pass 1: chunk 0 walks its rows from x_0 and writes them,
+// every other chunk reduces its rows to their product. The join: each
+// thread's prefix of its J results (J - 1 products), an inclusive scan of the
+// threads' totals over the four groups (two rounds of a shuffle and a
+// product), the total of the groups before g by one more shuffle, and the
+// start of each chunk (one product). Pass 2: chunk c > 0 walks its rows again
+// from its start (reading x a second time) and writes them. About 2 R C
+// products (a thread 2 R / 4), a chain of 2 L + J + 2. At C = 2,560 there are
+// only C / 8 = 320 warps, one to a warp scheduler, each issuing its products
+// alone: ptxas stalls a warp 4 cycles after each IMAD.WIDE, ~760 cycles a
+// product, against the multiply-add pipe's 512. J = 4 chains, the J products
+// interleaved step by step in the source, 16-column warps (K = 4), one-warp
+// blocks, rows loaded two steps ahead or unconditionally, and x read once
+// from registers (8-row chunks, 226 registers) were all measured slower on
+// the card at 2,560 or 20,480 columns, or both.
+#define ZG_MULREG_SPAN 8      // columns of a warp: a 32-byte sector a row and word plane
+#define ZG_MULREG_GROUPS 4    // lane groups of a warp, 32 / ZG_MULREG_SPAN
+#define ZG_MULREG_CHAINS 2    // J: the chunks a thread walks side by side
+#define ZG_MULREG_CHUNKS (ZG_MULREG_GROUPS * ZG_MULREG_CHAINS)  // K, a column's chunks
+#define ZG_MULREG_THREADS 128 // a block: four warps
+
+// J chains side by side: step i multiplies carry j by row s_j + i while that
+// row is below e_j, and writes the carry there if bit j of `store` is set.
+// The J products of a step are computed whatever the rows, and kept where
+// the row is one of the chain's, so that they share one basic block.
+ZG_HD void mul_reg_walk(Fe (&carry)[ZG_MULREG_CHAINS], const long (&s)[ZG_MULREG_CHAINS],
+                        const long (&e)[ZG_MULREG_CHAINS], unsigned store, long steps,
+                        const uint32_t* __restrict__ sx, uint32_t* __restrict__ out,
+                        long ncols, long col) {
+    const long row_words = (long)ZG_NW * ncols;
+    Fe x[ZG_MULREG_CHAINS];
+#pragma unroll
+    for (int j = 0; j < ZG_MULREG_CHAINS; j++)
+        x[j] = s[j] < e[j] ? fe_load(sx + s[j] * row_words, ncols, col) : fe_zero();
+#pragma unroll 1
+    for (long i = 0; i < steps; i++) {
+        Fe nx[ZG_MULREG_CHAINS], p[ZG_MULREG_CHAINS];
+#pragma unroll
+        for (int j = 0; j < ZG_MULREG_CHAINS; j++) {
+            const long r = s[j] + i + 1;
+            nx[j] = r < e[j] ? fe_load(sx + r * row_words, ncols, col) : fe_zero();
+        }
+#pragma unroll
+        for (int j = 0; j < ZG_MULREG_CHAINS; j++) p[j] = fe_mul<0>(carry[j], x[j]);
+#pragma unroll
+        for (int j = 0; j < ZG_MULREG_CHAINS; j++) {
+            const long r = s[j] + i;
+            if (r < e[j]) {
+                carry[j] = p[j];
+                if ((store >> j) & 1u) fe_store(out + r * row_words, ncols, col, carry[j]);
+            }
+            x[j] = nx[j];
+        }
+    }
+}
+
+// Pass 1 of lane group g's chunks: t[j] is chunk g J + j's result (chunk 0:
+// its last carry, written row by row; another chunk: the product of its rows;
+// no rows, or a column past the last: the Montgomery one).
+ZG_HD void mul_reg_first(int g, bool live, const uint32_t* __restrict__ sx,
+                         uint32_t* __restrict__ out, long rows, long ncols, long col,
+                         Fe (&t)[ZG_MULREG_CHAINS]) {
+    long s[ZG_MULREG_CHAINS], e[ZG_MULREG_CHAINS];
+#pragma unroll
+    for (int j = 0; j < ZG_MULREG_CHAINS; j++) {
+        const int c = g * ZG_MULREG_CHAINS + j;
+        long r0, r1;
+        mul_chunk_rows(rows, ZG_MULREG_CHUNKS, c, r0, r1);
+        if (!live || r0 >= r1) {
+            t[j] = fe_one<0>();
+            s[j] = e[j] = 0;
+        } else {
+            t[j] = fe_load(sx + r0 * ZG_NW * ncols, ncols, col);
+            s[j] = c == 0 ? r0 : r0 + 1;
+            e[j] = r1;
+        }
+    }
+    mul_reg_walk(t, s, e, g == 0 ? 1u : 0u, (rows + ZG_MULREG_CHUNKS - 1) / ZG_MULREG_CHUNKS,
+                 sx, out, ncols, col);
+}
+
+// q[j] = t[0] t[1] .. t[j], the thread's inclusive prefix.
+ZG_HD void mul_reg_prefix(const Fe (&t)[ZG_MULREG_CHAINS], Fe (&q)[ZG_MULREG_CHAINS]) {
+    q[0] = t[0];
+#pragma unroll
+    for (int j = 1; j < ZG_MULREG_CHAINS; j++) q[j] = fe_mul<0>(q[j - 1], t[j]);
+}
+
+// Pass 2 of lane group g's chunks from `before`, the product of the results
+// of the groups before g (group 0: the Montgomery one): chunk g J + j starts
+// from before q[j - 1] (j > 0) or `before` (j = 0) and writes its rows.
+// Chunk 0 was written in pass 1.
+ZG_HD void mul_reg_second(int g, bool live, const Fe& before,
+                          const Fe (&q)[ZG_MULREG_CHAINS], const uint32_t* __restrict__ sx,
+                          uint32_t* __restrict__ out, long rows, long ncols, long col) {
+    Fe carry[ZG_MULREG_CHAINS];
+    long s[ZG_MULREG_CHAINS], e[ZG_MULREG_CHAINS];
+#pragma unroll
+    for (int j = 0; j < ZG_MULREG_CHAINS; j++) {
+        const int c = g * ZG_MULREG_CHAINS + j;
+        mul_chunk_rows(rows, ZG_MULREG_CHUNKS, c, s[j], e[j]);
+        if (!live || c == 0) s[j] = e[j] = 0;
+        carry[j] = j == 0 ? before : fe_mul<0>(before, q[j - 1]);
+    }
+    mul_reg_walk(carry, s, e, (1u << ZG_MULREG_CHAINS) - 1u,
+                 (rows + ZG_MULREG_CHUNKS - 1) / ZG_MULREG_CHUNKS, sx, out, ncols, col);
 }
 
 // ---- madd: a chain of mixed adds that skips what changes nothing ---------------
@@ -433,10 +537,35 @@ __global__ void field_chain_kernel(const uint32_t* a, const uint32_t* b, uint32_
     if (col < n) field_chain_column<F>(col, a, b, out, n, k);
 }
 
-__global__ void scan_bisect_mul_reg_kernel(const uint32_t* sx, uint32_t* out, long rows,
-                                           long ncols) {
-    const long col = ZG_COL_INDEX;
-    if (col < ncols) mul_reg_column(col, sx, out, rows, ncols);
+__device__ __forceinline__ Fe fe_shfl_up(const Fe& a, unsigned delta) {
+    Fe r;
+#pragma unroll
+    for (int k = 0; k < ZG_NW; k++) r.w[k] = __shfl_up_sync(0xffffffffu, a.w[k], delta);
+    return r;
+}
+
+// Warp w owns columns ZG_MULREG_SPAN w ..; lane group g owns chunks
+// g J .. g J + J - 1 of its column. Every lane takes part in the shuffles, a
+// column past the last with the Montgomery one.
+__global__ void __launch_bounds__(ZG_MULREG_THREADS)
+scan_bisect_mul_reg_kernel(const uint32_t* __restrict__ sx, uint32_t* __restrict__ out,
+                           long rows, long ncols) {
+    const int lane = threadIdx.x % 32;
+    const int g = lane / ZG_MULREG_SPAN;
+    const long col = ZG_COL_INDEX / 32 * ZG_MULREG_SPAN + lane % ZG_MULREG_SPAN;
+    const bool live = col < ncols;
+    Fe t[ZG_MULREG_CHAINS], q[ZG_MULREG_CHAINS];
+    mul_reg_first(g, live, sx, out, rows, ncols, col, t);
+    mul_reg_prefix(t, q);
+    // inclusive scan of the threads' totals over the groups (Hillis-Steele)
+    Fe s = q[ZG_MULREG_CHAINS - 1];
+#pragma unroll
+    for (int d = 1; d < ZG_MULREG_GROUPS; d *= 2) {
+        const Fe m = fe_mul<0>(fe_shfl_up(s, d * ZG_MULREG_SPAN), s);
+        s = fe_select(g >= d, m, s);
+    }
+    const Fe before = fe_select(g > 0, fe_shfl_up(s, ZG_MULREG_SPAN), fe_one<0>());
+    mul_reg_second(g, live, before, q, sx, out, rows, ncols, col);
 }
 
 // Block: 32 lanes x ZG_TRIVIAL_WARPS warps, one chunk a warp; it walks the
@@ -592,6 +721,27 @@ static void scan_bisect_mul_smem_host(const uint32_t* sx, uint32_t* out, long ro
         }
     }
 }
+
+// The device's plan one column at a time: pass 1 of the four lane groups'
+// chunks, each group's prefix, the scan over the groups in the device's
+// rounds, then pass 2.
+static void scan_bisect_mul_reg_host(const uint32_t* sx, uint32_t* out, long rows,
+                                     long ncols) {
+    Fe t[ZG_MULREG_GROUPS][ZG_MULREG_CHAINS], q[ZG_MULREG_GROUPS][ZG_MULREG_CHAINS];
+    Fe s[ZG_MULREG_GROUPS];
+    for (long col = 0; col < ncols; col++) {
+        for (int g = 0; g < ZG_MULREG_GROUPS; g++) {
+            mul_reg_first(g, true, sx, out, rows, ncols, col, t[g]);
+            mul_reg_prefix(t[g], q[g]);
+            s[g] = q[g][ZG_MULREG_CHAINS - 1];
+        }
+        for (int d = 1; d < ZG_MULREG_GROUPS; d *= 2)
+            for (int g = ZG_MULREG_GROUPS - 1; g >= d; g--) s[g] = fe_mul<0>(s[g - d], s[g]);
+        for (int g = 0; g < ZG_MULREG_GROUPS; g++)
+            mul_reg_second(g, true, g > 0 ? s[g - 1] : fe_one<0>(), q[g], sx, out, rows,
+                           ncols, col);
+    }
+}
 #endif
 
 // body: 0 = trivial, 1 = mul_smem, 2 = mul_reg, 3 = madd
@@ -614,8 +764,8 @@ extern "C" int zg_scan_bisect(int body, const void* sx, const void* sy,
         scan_bisect_mul_smem_kernel<<<ZG_BLOCKS(ncols, ZG_MUL_THREADS / chunks),
                                       ZG_MUL_THREADS, 0, st>>>(px, po, rows, ncols, chunks);
     } else if (ncols > 0 && body == ZG_BISECT_MUL_REG) {
-        scan_bisect_mul_reg_kernel<<<ZG_BLOCKS(ncols, ZG_BISECT_THREADS), ZG_BISECT_THREADS,
-                                     0, st>>>(px, po, rows, ncols);
+        scan_bisect_mul_reg_kernel<<<ZG_BLOCKS(ncols, ZG_MULREG_SPAN * ZG_MULREG_THREADS / 32),
+                                     ZG_MULREG_THREADS, 0, st>>>(px, po, rows, ncols);
     } else if (ncols > 0) {
         scan_bisect_madd_kernel<<<ZG_BLOCKS(ncols * ZG_MADD_GROUP, ZG_MADD_THREADS),
                                   ZG_MADD_THREADS, 0, st>>>(px, py, pf, po, rows, ncols);
@@ -628,7 +778,7 @@ extern "C" int zg_scan_bisect(int body, const void* sx, const void* sy,
     } else if (body == ZG_BISECT_MUL_SMEM) {
         scan_bisect_mul_smem_host(px, po, rows, ncols);
     } else if (body == ZG_BISECT_MUL_REG) {
-        for (long col = 0; col < ncols; col++) mul_reg_column(col, px, po, rows, ncols);
+        scan_bisect_mul_reg_host(px, po, rows, ncols);
     } else {
         for (long col = 0; col < ncols; col++) {
             madd_walk<1>(col, 0, px, py, pf, po, rows, ncols);

@@ -29,7 +29,7 @@ import time
 
 import torch
 
-__all__ = ["build", "load", "lib", "register", "launch_counts",
+__all__ = ["build", "load", "lib", "demangle", "register", "launch_counts",
            "reset_launch_counts", "to_word_planes", "from_word_planes",
            "check_planes", "current_stream", "BUILD_INFO"]
 
@@ -78,24 +78,30 @@ def _nvcc() -> str:
                        "kernels cannot be built on this machine")
 
 
+def demangle(mangled: str) -> str:
+    """A kernel's mangled name demangled as far as the identifier and its
+    integer template arguments, e.g. ``field_binop_kernel<0,0,4>`` (a field
+    argument is 0 for Fq, 1 for Fr); a name that is not mangled as it is."""
+    mm = re.match(r"_Z(\d+)", mangled)
+    if not mm:
+        return mangled
+    end = mm.end() + int(mm.group(1))
+    name = mangled[mm.end():end]
+    targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
+    if targs:
+        name += "<" + ",".join(re.findall(r"Li(-?\d+)E", targs.group(1))) + ">"
+    return name
+
+
 def _parse_ptxas(text: str) -> dict:
     """'ptxas info' lines -> {kernel name: {registers, stack, spill_stores,
-    spill_loads}} (names demangled as far as the identifier and its integer
-    template arguments, e.g. ``field_binop_kernel<0,0,4>``; a field argument
-    is 0 for Fq, 1 for Fr)."""
+    spill_loads}}, names as :func:`demangle` gives them."""
     out = {}
     name = None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            mangled = name = m.group(1)
-            mm = re.match(r"_Z(\d+)", mangled)
-            if mm:
-                end = mm.end() + int(mm.group(1))
-                name = mangled[mm.end():end]
-                targs = re.match(r"I((?:Li-?\d+E)+)E", mangled[end:])
-                if targs:
-                    name += "<" + ",".join(re.findall(r"Li(-?\d+)E", targs.group(1))) + ">"
+            name = demangle(m.group(1))
             out.setdefault(name, {})
             continue
         if name is None:
