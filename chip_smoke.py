@@ -46,6 +46,21 @@ short kernel's time leaves out the host's wrappers. The warm WNN proof's
 SHA-256 is asserted: a kernel change must leave the proof's bytes as they
 were.
 
+The ``cli`` phase (after ``wnn``, which it implies) drives the user's entry
+point, ``zerog_tpu_torch.cli``, at the same width: ``generate-srs -k 14``
+(its file read back equal to ``Srs.setup(14)``); the ``wnn`` phase's SRS, key
+and circuit params written to files (``Srs.write``, ``models.keys_io``,
+``models.io``) and read back; the proof made from the files read back, whose
+SHA-256 must be the ``wnn`` phase's; ``verify`` from the files; the k = 14
+verifier contract (``eth.gen_evm_verifier``) dry-run in the EVM executor,
+accepting the proof and reverting a tampered proof and wrong scores;
+``deploy-evm-verifier`` and ``submit-proof`` on the local node (state shared
+through ``ZEROG_DEV_NODE_STATE``), the tampered proof's submit reverted. The
+subcommands that load an HDF5 model or a PNG are replaced by the functions
+they call after loading (the card's machine has no h5py and no PIL). Every
+MSM and NTT kernel must be launched in the phase; its ``launches`` are the
+``cli`` column of the kernel rows' ``launches_by_path``.
+
 The ``bench`` phase drives the two measuring kernels through their
 benchmarks' entry points (``zerog_tpu_torch.bench``): ``field_chain``, 16
 chained Fr products an element at n = 2^18, beside 16 launches of
@@ -72,7 +87,8 @@ peak rate of those slots rests.
 It prints one JSON object a line; any phase that fails raises and the run
 exits non-zero. Without a CUDA device it exits non-zero at once. The last
 line is ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
-(for development); with no arguments every phase runs.
+(for development: ``env,build,commit,wnn,cli`` runs the entry point's
+path); with no arguments every phase runs.
 """
 
 from __future__ import annotations
@@ -1133,12 +1149,16 @@ def tiny_model():
     return make_synthetic_wnn(*TINY_SHAPE, seed=0)
 
 
+def smoke_image():
+    return np.random.default_rng(SEED).integers(0, 256, (28, 28)).astype(np.uint8)
+
+
 def phase_wnn(srs):
     """The system's own path on a seeded model of MNIST-Tiny's shape at
     k = 14: device prediction, keygen, two proofs under one seed, verify,
     rejections, and a third proof on the butterflies alone."""
     wnn = tiny_model()
-    image = np.random.default_rng(SEED).integers(0, 256, (28, 28)).astype(np.uint8)
+    image = smoke_image()
     scores = [int(v) for v in wnn.predict(image)]
     t0 = time.time()
     fwd = wnn.predict_fn()
@@ -1226,7 +1246,7 @@ def phase_wnn(srs):
               launches=launches, verified=True,
               tamper_rejected=True, wrong_scores_rejected=True,
               deterministic=True, engine_equals_butterflies_bytes=True))
-    return launches, rec
+    return launches, rec, pk
 
 
 def _path_affine(rec):
@@ -1358,14 +1378,171 @@ def phase_path_kernels(rec):
     return out
 
 
+# ---- phase 8: the user's entry point: files, CLI, EVM verifier, local chain -----------
+
+def _cli(argv):
+    """Run ``zerog_tpu_torch.cli.main(argv)``; return what it printed."""
+    import contextlib
+    import io
+
+    from zerog_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue()
+
+
+def phase_cli(srs, pk):
+    """The slice's path at full width: the SRS made by ``generate-srs``; the
+    ``wnn`` phase's SRS, key and circuit params written to files and read
+    back; the proof from the files (its SHA-256 is the ``wnn`` phase's);
+    ``verify`` from the files; the k = 14 verifier contract generated and
+    dry-run in the EVM executor (a tampered proof and wrong scores
+    reverted); ``deploy-evm-verifier`` and ``submit-proof`` on the local
+    node, sharing its state through a file. The subcommands that load an
+    HDF5 model or a PNG (the card's machine has neither h5py nor PIL) are
+    replaced by the port functions they call after loading."""
+    import os
+    import re
+    import tempfile
+
+    from zerog_tpu_torch.eth import dry_run_verifier, gen_evm_verifier
+    from zerog_tpu_torch.models.io import (read_circuit_params,
+                                           write_circuit_params,
+                                           write_proof_with_output)
+    from zerog_tpu_torch.models.keys_io import read_pk, read_vk, write_keys
+
+    wnn = tiny_model()
+    image = smoke_image()
+    secs, sizes = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.time()
+        out = fn(*args, **kw)
+        sync()
+        secs[name] = round(time.time() - t0, 3)
+        return out
+
+    kernels.reset_launch_counts()
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="zg_cli_") as tmp:
+        def f(name):
+            return os.path.join(tmp, name)
+
+        # the SRS made through the CLI equals one made in the process
+        out = timed("generate_srs", _cli, ["generate-srs", "-k", str(K),
+                                           "--srs-path", f("srs_cli.bin")])
+        if out != f"SRS (k={K}) written to {f('srs_cli.bin')}\n":
+            raise AssertionError(f"generate-srs printed {out!r}")
+        fresh = timed("setup", Srs.setup, K)
+        back = timed("read_srs_cli", Srs.read, f("srs_cli.bin"))
+        if (back.g, back.g_lagrange, back.g2, back.s_g2) != (
+                fresh.g, fresh.g_lagrange, fresh.g2, fresh.s_g2):
+            raise AssertionError("Srs.read of generate-srs's file != Srs.setup(14)")
+        del fresh, back
+
+        # the wnn phase's SRS, key and circuit params through files
+        params = wnn.get_circuit_params()
+        timed("write_srs", srs.write, f("srs.bin"))
+        timed("write_keys", write_keys, pk, f("pk.npz"), f("vk.npz"))
+        write_circuit_params(params, f("circuit_params.json"))
+        srs2 = timed("read_srs", Srs.read, f("srs.bin"))
+        params2 = read_circuit_params(f("circuit_params.json"))
+        pk2 = timed("read_pk", read_pk, f("pk.npz"), params2)
+        vk2 = timed("read_vk", read_vk, f("vk.npz"), params2)
+        if params2 != params:
+            raise AssertionError("circuit params read back differ")
+        if not (pk2.vk.transcript_repr == vk2.transcript_repr
+                == pk.vk.transcript_repr):
+            raise AssertionError("the key read back has another transcript_repr")
+        proof, outputs = timed("prove_from_files", wnn.proof, pk2, srs2, image,
+                               rng_seed=b"chip-smoke-wnn")
+        sha = hashlib.sha256(proof).hexdigest()
+        if sha != WNN_PROOF_SHA256:
+            raise AssertionError(f"proof from the files: SHA-256 {sha} != "
+                                 f"{WNN_PROOF_SHA256}")
+        write_proof_with_output(proof, outputs, f("proof.json"))
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        bad = bytes(bad)
+        write_proof_with_output(bad, outputs, f("proof_bad.json"))
+        for name in ("srs_cli.bin", "srs.bin", "pk.npz", "vk.npz",
+                     "circuit_params.json", "proof.json"):
+            sizes[name] = os.path.getsize(f(name))
+
+        files = ["--srs-path", f("srs.bin"), "--vk-path", f("vk.npz"),
+                 "--circuit-params-path", f("circuit_params.json")]
+        out = timed("verify_cli", _cli, ["verify"] + files
+                    + ["--proof-path", f("proof.json")])
+        if not out.startswith("Proof verified") or str(outputs) not in out:
+            raise AssertionError(f"verify printed {out!r}")
+
+        # the EVM verifier of the k = 14 key, dry-run in the executor
+        code = timed("codegen", gen_evm_verifier, vk2, srs2, [len(outputs)])
+        gas = timed("dry_run", dry_run_verifier, code, [outputs], proof)
+        wrong = list(outputs)
+        wrong[0] += 1
+        for case, args in (("dry_run_tampered", ([outputs], bad)),
+                           ("dry_run_wrong_scores", ([wrong], proof))):
+            t0 = time.time()
+            try:
+                dry_run_verifier(code, *args)
+            except ValueError:
+                secs[case] = round(time.time() - t0, 3)
+            else:
+                raise AssertionError(f"EVM verifier accepted: {case}")
+
+        # deploy and submit on the local node, its state in a file
+        os.environ["ZEROG_DEV_NODE_STATE"] = f("devnode.json")
+        try:
+            out = timed("deploy_cli", _cli, ["deploy-evm-verifier"] + files
+                        + ["--endpoint", "local"])
+            found = re.findall(r"^Contract address: (0x[0-9a-f]{40})$", out, re.M)
+            if len(found) != 1:
+                raise AssertionError(f"deploy-evm-verifier printed {out!r}")
+            addr = found[0]
+            out = timed("submit_cli", _cli, ["submit-proof", "--proof-path",
+                                             f("proof.json"), addr,
+                                             "--endpoint", "local"])
+            submit_gas = int(re.search(r"Gas used: (\d+)", out).group(1))
+            t0 = time.time()
+            try:
+                _cli(["submit-proof", "--proof-path", f("proof_bad.json"), addr,
+                      "--endpoint", "local"])
+            except ValueError:
+                secs["submit_tampered_cli"] = round(time.time() - t0, 3)
+            else:
+                raise AssertionError("the local node accepted a tampered proof")
+        finally:
+            del os.environ["ZEROG_DEV_NODE_STATE"]
+    launches = kernels.launch_counts()
+    for name in MSM_KERNELS + NTT_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 "cli path")
+    total = round(time.time() - t_phase, 3)
+    emit(dict(phase="cli", k=K, model="make_synthetic_wnn(28, 256, 1, 1, seed=0)",
+              seconds=secs, total_s=total, file_bytes=sizes,
+              proof_sha256=sha, proof_bytes=len(proof),
+              transcript_repr_equal=True, srs_cli_equals_setup=True,
+              verified_cli=True, evm_code_bytes=len(code), evm_gas=gas,
+              evm_tampered_rejected=True, evm_wrong_scores_rejected=True,
+              contract_address=addr, submit_gas=submit_gas,
+              submit_tampered_rejected=True, launches=launches))
+    return launches
+
+
 # ---- main --------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="env,build,kernels,bench,ntt,commit,prove,wnn")
+                    default="env,build,kernels,bench,ntt,commit,prove,wnn,cli")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    if "cli" in phases and "wnn" not in phases:
+        phases.append("wnn")        # cli writes the wnn phase's key to files
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
@@ -1390,9 +1567,12 @@ def main():
         if "prove" in phases:
             by_path["prove"] = phase_prove(srs)
         if "wnn" in phases:
-            by_path["wnn"], rec = phase_wnn(srs)
+            by_path["wnn"], rec, wnn_pk = phase_wnn(srs)
             path_res = phase_path_kernels(rec)
             del rec
+            if "cli" in phases:
+                by_path["cli"] = phase_cli(srs, wnn_pk)
+            del wnn_pk
     main_path = by_path.get("wnn", by_path.get("prove", {}))
 
     rows = []

@@ -32,6 +32,14 @@ PORT_MODULES = [
     "zerog_tpu_torch.bench", "zerog_tpu_torch.bench.field_chain",
     "zerog_tpu_torch.bench.scan_bisect",
 ]
+# the user's entry point and its host modules: none of them may need h5py,
+# PIL or matplotlib to import (the card's machine has none of the three)
+HOST_IO_MODULES = [
+    "zerog_tpu_torch.cli", "zerog_tpu_torch.eth", "zerog_tpu_torch.eth.client",
+    "zerog_tpu_torch.models.io", "zerog_tpu_torch.models.keys_io",
+    "zerog_tpu_torch.plonk.layout", "zerog_tpu_torch.utils",
+]
+PORT_MODULES += HOST_IO_MODULES
 
 
 def _fresh(code):
@@ -51,6 +59,23 @@ def test_fresh_interpreter_imports_no_jax(target):
           "assert not bad, bad\n"
           "assert 'torch' in sys.modules\n"
           "print('clean')\n")
+    out = _fresh(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_host_io_modules_import_without_h5py_pil_matplotlib():
+    blocked = ["h5py", "PIL", "matplotlib"]
+    code = (
+        "import sys\n"
+        + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked)
+        + "".join(f"import {m}\n" for m in HOST_IO_MODULES)
+        + f"assert all(sys.modules[m] is None for m in {blocked!r})\n"
+          "from zerog_tpu_torch.models import load_wnn\n"
+          "try:\n"
+          "    load_wnn('missing.hdf5')\n"
+          "except ImportError:\n"
+          "    print('clean')\n")
     out = _fresh(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
@@ -82,6 +107,7 @@ def _entry_points():
     from zerog_tpu_torch.models import make_synthetic_wnn
     from zerog_tpu_torch.poly import NttPlan, get_domain
     from zerog_tpu_torch.bench import field_chain, scan_bisect
+    from zerog_tpu_torch import cli
 
     return {
         "Srs.setup": lambda: Srs.setup(2),
@@ -95,13 +121,16 @@ def _entry_points():
         "Wnn.predict_fn": lambda: make_synthetic_wnn(28, 256, 1, 1).predict_fn(),
         "bench.field_chain.main": lambda: field_chain.main([]),
         "bench.scan_bisect.main": lambda: scan_bisect.main([]),
+        "cli.main": lambda: cli.main(["generate-srs", "-k", "2",
+                                      "--srs-path", "missing.srs"]),
     }
 
 
 ENTRY_POINT_NAMES = ["Srs.setup", "Srs.read", "NttPlan", "get_domain", "msm",
                      "build_window_table", "points_to_device",
                      "fixed_base_expand", "Wnn.predict_fn",
-                     "bench.field_chain.main", "bench.scan_bisect.main"]
+                     "bench.field_chain.main", "bench.scan_bisect.main",
+                     "cli.main"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINT_NAMES)

@@ -92,6 +92,53 @@ def port_proof(carried):
     return proof
 
 
+@pytest.fixture(scope="module")
+def evm_code(carried):
+    """The port's verifier contract for the carried k = 6 key, and
+    zerog_tpu's for the same key."""
+    from zerog_tpu.eth import gen_evm_verifier as j_gen_evm_verifier
+    from zerog_tpu_torch.eth import gen_evm_verifier
+
+    jsrs, jpk, srs, pk = carried
+    return gen_evm_verifier(pk.vk, srs, [1]), j_gen_evm_verifier(jpk.vk, jsrs, [1])
+
+
+def test_evm_verifier_bytes_equal_reference(evm_code):
+    code, jcode = evm_code
+    assert code == jcode and len(code) > 1000
+
+
+def test_evm_dry_run_accepts_port_proof_with_reference_gas(evm_code, port_proof):
+    """The port's executor accepts the port's proof, and spends the gas that
+    zerog_tpu's executor spends on the same code and calldata."""
+    from zerog_tpu.eth import dry_run_verifier as j_dry_run_verifier
+    from zerog_tpu_torch.eth import dry_run_verifier
+
+    code, _ = evm_code
+    gas = dry_run_verifier(code, [[15]], port_proof)
+    assert 0 < gas < 5_000_000
+    assert gas == j_dry_run_verifier(code, [[15]], port_proof)
+
+
+@pytest.mark.parametrize("case", ["flip_40", "flip_middle", "flip_end",
+                                  "wrong_instance"])
+def test_evm_dry_run_rejects(evm_code, port_proof, case):
+    """As tests/test_evm_verifier.py: three tampered bytes, a wrong
+    instance; the verifier reverts and the dry run raises."""
+    from zerog_tpu_torch.eth import dry_run_verifier
+
+    code, _ = evm_code
+    proof, instance = bytearray(port_proof), [[15]]
+    pos = {"flip_40": 40, "flip_middle": len(proof) // 2,
+           "flip_end": len(proof) - 10}.get(case)
+    if pos is None:
+        instance = [[16]]
+    else:
+        proof[pos] ^= 1
+    with pytest.raises(ValueError, match="reverted"):
+        dry_run_verifier(code, instance, bytes(proof))
+
+
 def test_carried_key_has_reference_digest(carried):
     _, jpk, _, pk = carried
     assert pk.vk.transcript_repr == jpk.vk.transcript_repr == K6_TRANSCRIPT_REPR

@@ -16,7 +16,7 @@ commitment of keygen and create_proof. Two strategies are ported:
   (:func:`build_window_table`), one accumulation for all windows.
 
 The "danaa", "scan" and "segscan" strategies of the JAX package are not
-ported yet (ROADMAP.md, queue 1, item c).
+ported yet (ROADMAP.md, queue 1, item f).
 
 Bucket accumulation has no cross-lane work in the hot loop: sort each
 (window, scalar-row) digit lane ONCE, lay the sorted points out column-major
@@ -472,7 +472,7 @@ def msm(scalars, points_dev=None, c: int | None = None,
     if strategy not in ("pippenger", "fixed"):
         raise NotImplementedError(
             f"MSM strategy {strategy!r} is not ported yet (ROADMAP.md, "
-            "queue 1, item c: segscan/danaa/scan strategies)")
+            "queue 1, item f: segscan/danaa/scan strategies)")
     single = not isinstance(scalars[0], (list, tuple, np.ndarray))
     if single:
         scalars = [scalars]

@@ -129,6 +129,16 @@ class Wnn:
         prover = MockProver.run(self.get_circuit(image), [outputs], k=k)
         prover.assert_satisfied()
 
+    def plot_circuit(self, filename: str, k: int):
+        """Render the circuit layout (reference src/wnn.rs:198-201)."""
+        from ..plonk.mock import MockProver
+        from ..plonk.layout import render_layout
+
+        dummy = np.zeros(self.img_shape, dtype=np.uint8)
+        outputs = [int(v) for v in self.predict(dummy)]
+        prover = MockProver.run(self.get_circuit(dummy), [outputs], k=k)
+        return render_layout(prover.a, filename, title="WNN Layout")
+
     def generate_proving_key(self, srs):
         """Keys are input-independent: synthesize with a dummy zero image
         (reference src/wnn.rs:219-229). Runs on the SRS's device."""
