@@ -61,6 +61,25 @@ they call after loading (the card's machine has no h5py and no PIL). Every
 MSM and NTT kernel must be launched in the phase; its ``launches`` are the
 ``cli`` column of the kernel rows' ``launches_by_path``.
 
+The ``mesh`` phase (on by default, after ``wnn``, which it implies;
+``--phases env,build,commit,wnn,mesh`` runs just the mesh) repeats the
+``wnn`` phase's warm proof with ``create_proof(..., mesh=mesh)`` on a mesh
+of 4 entries on the one card (``zerog_tpu_torch.parallel``: commitments
+through ``ShardedSrs``, each entry running the bucket pipeline and so
+kernels 2-5 on its quarter of the points; NTTs by the four-step
+decomposition, whose sub-plans of 2^7-2^9 stay on the butterflies; the
+quotient on row blocks), first and warm: the same pk, SRS, image and seed,
+so the bytes must be the ``wnn`` phase's (``WNN_PROOF_SHA256``), and the
+proof must verify. Its launches are the ``mesh`` column of the kernel rows'
+``launches_by_path``; kernels 2-5 must have launched. It then runs
+``dryrun_multichip(4, ["cuda:0"] * 4)`` (the toy circuit at k = 6, mesh and
+single-device bytes equal) and holds the MSM strategies against the
+prover's: ``scan`` and ``danaa`` against ``pippenger`` on 2 rows over the
+first 4,096 points of the k = 14 SRS, ``segscan`` against ``fixed`` on 8
+rows over its Lagrange window table, points equal. Its line gives the first
+and warm mesh proof's seconds beside the single-device warm proof's, each
+strategy's seconds and the dry run's ``scaling_proxy``.
+
 The ``bench`` phase drives the two measuring kernels through their
 benchmarks' entry points (``zerog_tpu_torch.bench``): ``field_chain``, 16
 chained Fr products an element at n = 2^18, beside 16 launches of
@@ -88,7 +107,8 @@ It prints one JSON object a line; any phase that fails raises and the run
 exits non-zero. Without a CUDA device it exits non-zero at once. The last
 line is ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
 (for development: ``env,build,commit,wnn,cli`` runs the entry point's
-path); with no arguments every phase runs.
+path, ``env,build,commit,wnn,mesh`` the mesh's); with no arguments every
+phase runs.
 """
 
 from __future__ import annotations
@@ -1246,7 +1266,7 @@ def phase_wnn(srs):
               launches=launches, verified=True,
               tamper_rejected=True, wrong_scores_rejected=True,
               deterministic=True, engine_equals_butterflies_bytes=True))
-    return launches, rec, pk
+    return launches, rec, pk, t_prove2
 
 
 def _path_affine(rec):
@@ -1533,16 +1553,123 @@ def phase_cli(srs, pk):
     return launches
 
 
+# ---- phase: mesh --------------------------------------------------------------------
+
+MESH_ENTRIES = 4       # the deployment a four-card cell will measure
+STRATEGY_POINTS = 4096
+
+
+def _strategy(name, fn, want):
+    """Seconds of `fn()` on the card, and its points against `want`."""
+    sync()
+    t0 = time.time()
+    got = fn()
+    sync()
+    secs = round(time.time() - t0, 3)
+    if got != want:
+        raise AssertionError(f"MSM strategy {name} != its reference strategy")
+    return secs
+
+
+def phase_mesh(srs, pk, single_warm_s):
+    """The mesh path on the card: the ``wnn`` phase's warm proof repeated on
+    a mesh of 4 entries on the one card (the same pk, SRS, image and seed;
+    commitments through the point-sharded MSM, each entry launching kernels
+    2-5 on its shard, the four-step NTTs, the quotient on row blocks), first
+    and warm, its bytes the ``wnn`` phase's; the dry run of the toy circuit
+    on the same mesh; the strategies ``scan``, ``danaa`` and ``segscan``
+    held against ``pippenger`` and ``fixed``, points equal. The launches of
+    the two mesh proofs are the ``mesh`` column of ``launches_by_path``."""
+    import contextlib
+    import io
+
+    from zerog_tpu_torch.curve import msm
+    from zerog_tpu_torch.parallel import make_mesh
+    from zerog_tpu_torch.parallel.dryrun import dryrun_multichip
+    from zerog_tpu_torch.plonk import create_proof
+
+    wnn = tiny_model()
+    image = smoke_image()
+    outputs = [int(v) for v in wnn.predict(image)]
+    mesh = make_mesh(MESH_ENTRIES, [DEV] * MESH_ENTRIES)
+
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    proof1 = create_proof(pk, srs, wnn.get_circuit(image), [outputs],
+                          rng_seed=b"chip-smoke-wnn", mesh=mesh)
+    sync()
+    t_first = time.time() - t0
+    timings = {}
+    t0 = time.time()
+    proof2 = create_proof(pk, srs, wnn.get_circuit(image), [outputs],
+                          rng_seed=b"chip-smoke-wnn", mesh=mesh, timings=timings)
+    sync()
+    t_warm = time.time() - t0
+    launches = kernels.launch_counts()
+    sha = hashlib.sha256(proof2).hexdigest()
+    if proof1 != proof2:
+        raise AssertionError("equal seeds gave different mesh proof bytes")
+    if sha != WNN_PROOF_SHA256:
+        raise AssertionError(f"mesh WNN proof SHA-256 {sha} != {WNN_PROOF_SHA256}")
+    if not wnn.verify_proof(proof2, srs, pk.vk, outputs):
+        raise AssertionError("the mesh WNN proof did not verify")
+    for name in MSM_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 "mesh path")
+
+    # the dry run's own lines go into the mesh line: one JSON object a line
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        proxy = dryrun_multichip(MESH_ENTRIES, [DEV] * MESH_ENTRIES)
+    sync()
+    t_dryrun = time.time() - t0
+
+    # the strategies, each against the one the prover runs
+    rnd = random.Random(SEED + 3)
+    pdev = points_to_device(srs.g[:STRATEGY_POINTS], device=DEV)
+    rows = [[rnd.randrange(FR.p) for _ in range(STRATEGY_POINTS)] for _ in range(2)]
+    want = msm(rows, pdev, strategy="pippenger", device=DEV)
+    secs = {name: _strategy(name, lambda name=name: msm(rows, pdev, strategy=name,
+                                                        device=DEV), want)
+            for name in ("scan", "danaa")}
+    table = srs.window_table("lagrange")
+    rows8 = [[rnd.randrange(FR.p) for _ in range(srs.n)] for _ in range(8)]
+    t0 = time.time()
+    want8 = msm(rows8, table=table, device=DEV)
+    sync()
+    secs["fixed"] = round(time.time() - t0, 3)
+    secs["segscan"] = _strategy("segscan", lambda: msm(
+        rows8, table=table, strategy="segscan", device=DEV), want8)
+
+    emit(dict(phase="mesh", k=K, model="make_synthetic_wnn(28, 256, 1, 1, seed=0)",
+              entries=[str(d) for d in mesh], prove_first_s=round(t_first, 3),
+              prove_warm_s=round(t_warm, 3),
+              single_device_prove_warm_s=round(single_warm_s, 3),
+              timings={k: round(v, 4) for k, v in timings.items()},
+              proof_sha256=sha, proof_bytes=len(proof2), verified=True,
+              launches=launches, dryrun_s=round(t_dryrun, 3),
+              dryrun=buf.getvalue().splitlines()[0], scaling_proxy=proxy,
+              strategies=dict(seconds=secs,
+                              scan_danaa=f"2 rows x {STRATEGY_POINTS} points of "
+                                         "the k = 14 SRS, against pippenger",
+                              segscan="8 rows over the k = 14 Lagrange window "
+                                      "table, against fixed",
+                              points_equal=True)))
+    return launches
+
+
 # ---- main --------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="env,build,kernels,bench,ntt,commit,prove,wnn,cli")
+                    default="env,build,kernels,bench,ntt,commit,prove,wnn,cli,mesh")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if "cli" in phases and "wnn" not in phases:
-        phases.append("wnn")        # cli writes the wnn phase's key to files
+    if ("cli" in phases or "mesh" in phases) and "wnn" not in phases:
+        phases.append("wnn")        # cli and mesh take the wnn phase's key
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
@@ -1567,11 +1694,13 @@ def main():
         if "prove" in phases:
             by_path["prove"] = phase_prove(srs)
         if "wnn" in phases:
-            by_path["wnn"], rec, wnn_pk = phase_wnn(srs)
+            by_path["wnn"], rec, wnn_pk, warm_s = phase_wnn(srs)
             path_res = phase_path_kernels(rec)
             del rec
             if "cli" in phases:
                 by_path["cli"] = phase_cli(srs, wnn_pk)
+            if "mesh" in phases:
+                by_path["mesh"] = phase_mesh(srs, wnn_pk, warm_s)
             del wnn_pk
     main_path = by_path.get("wnn", by_path.get("prove", {}))
 

@@ -30,7 +30,13 @@ PORT_MODULES = [
     "zerog_tpu_torch.models.synthetic",
     "zerog_tpu_torch.convert", "zerog_tpu_torch.kernels",
     "zerog_tpu_torch.bench", "zerog_tpu_torch.bench.field_chain",
-    "zerog_tpu_torch.bench.scan_bisect",
+    "zerog_tpu_torch.bench.scan_bisect", "zerog_tpu_torch.bench.ab",
+    "zerog_tpu_torch.parallel", "zerog_tpu_torch.parallel.mesh",
+    "zerog_tpu_torch.parallel.sharded_ntt",
+    "zerog_tpu_torch.parallel.sharded_domain",
+    "zerog_tpu_torch.parallel.sharded_msm",
+    "zerog_tpu_torch.parallel.sharded_prover",
+    "zerog_tpu_torch.parallel.dryrun",
 ]
 # the user's entry point and its host modules: none of them may need h5py,
 # PIL or matplotlib to import (the card's machine has none of the three)
@@ -91,6 +97,59 @@ def test_sources_name_no_jax_import():
         assert not pat.search(path.read_text()), path
 
 
+def _launch_sites(tree):
+    """(call, enclosing with-items) for every call in `tree` that launches a
+    kernel: a call of a ``zg_*`` attribute of the loaded library, or of
+    ``getattr(<library>, name)`` (the form of the A/B harness and of the
+    flush scan's wrapper)."""
+    import ast
+
+    sites = []
+
+    def visit(node, withs):
+        if isinstance(node, ast.With):
+            withs = withs + [item.context_expr for item in node.items]
+        if isinstance(node, ast.Call):
+            fn = node.func
+            if (isinstance(fn, ast.Attribute) and fn.attr.startswith("zg_")) or (
+                    isinstance(fn, ast.Call) and isinstance(fn.func, ast.Name)
+                    and fn.func.id == "getattr" and "lib" in ast.unparse(fn.args[0])):
+                sites.append((node, withs))
+        for child in ast.iter_child_nodes(node):
+            visit(child, withs)
+
+    visit(tree, [])
+    return sites
+
+
+def test_every_launch_goes_to_its_operands_device():
+    """Every ``zg_*`` launch in the port sits inside ``with
+    kernels.on_device(t) as stream`` and passes that stream, so it goes to
+    the device that holds its operands (also a card other than the current
+    one); ``ntt.cu`` sets its shared-memory attribute per device."""
+    import ast
+
+    files = list((ROOT / "zerog_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = 0
+    for path in files:
+        src = path.read_text()
+        assert "current_stream(" not in src.replace("torch.cuda.current_stream(", ""), path
+        for call, withs in _launch_sites(ast.parse(src)):
+            where = f"{path.name}:{call.lineno}"
+            guards = [w for w in withs if isinstance(w, ast.Call)
+                      and ast.unparse(w.func) in ("kernels.on_device", "on_device")]
+            assert guards, f"{where}: launch outside kernels.on_device"
+            last = call.args[-1] if call.args else None
+            assert isinstance(last, ast.Name) and last.id == "stream", \
+                f"{where}: the launch's last argument is not the device's stream"
+            found += 1
+    assert found >= 10       # the nine wrappers' launches and the A/B harness's
+    ntt = (ROOT / "zerog_tpu_torch" / "csrc" / "ntt.cu").read_text()
+    tw = ntt[ntt.index("static int tw_launch"):]
+    tw = tw[:tw.index("\n}\n")]
+    assert "cudaGetDevice(&dev)" in tw and "attr[dev]" in tw
+
+
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("only meaningful on a machine without a CUDA device")
@@ -108,6 +167,8 @@ def _entry_points():
     from zerog_tpu_torch.poly import NttPlan, get_domain
     from zerog_tpu_torch.bench import field_chain, scan_bisect
     from zerog_tpu_torch import cli
+    from zerog_tpu_torch.parallel import make_mesh
+    from zerog_tpu_torch.parallel.dryrun import dryrun_multichip
 
     return {
         "Srs.setup": lambda: Srs.setup(2),
@@ -123,6 +184,8 @@ def _entry_points():
         "bench.scan_bisect.main": lambda: scan_bisect.main([]),
         "cli.main": lambda: cli.main(["generate-srs", "-k", "2",
                                       "--srs-path", "missing.srs"]),
+        "make_mesh": lambda: make_mesh(),
+        "dryrun_multichip": lambda: dryrun_multichip(4),
     }
 
 
@@ -130,7 +193,7 @@ ENTRY_POINT_NAMES = ["Srs.setup", "Srs.read", "NttPlan", "get_domain", "msm",
                      "build_window_table", "points_to_device",
                      "fixed_base_expand", "Wnn.predict_fn",
                      "bench.field_chain.main", "bench.scan_bisect.main",
-                     "cli.main"]
+                     "cli.main", "make_mesh", "dryrun_multichip"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINT_NAMES)

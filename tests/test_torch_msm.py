@@ -7,6 +7,7 @@ field arithmetic are exact, so affine results are compared for equality and
 the pipeline's Jacobian accumulators limb for limb — tolerance zero.
 """
 
+import os
 import random
 
 import numpy as np
@@ -17,26 +18,28 @@ import jax.numpy as jnp
 
 from zerog_tpu.curve import Srs as JSrs
 from zerog_tpu.curve import pippenger as jpp
+from zerog_tpu.curve.bn254 import g1_msm_host as j_g1_msm_host
 from zerog_tpu.field import to_limbs as j_to_limbs
 
 from zerog_tpu_torch import convert
 from zerog_tpu_torch.curve import Srs, msm, points_to_device
 from zerog_tpu_torch.curve import pippenger as tpp
-from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_add, g1_mul
+from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from zerog_tpu_torch.curve.jpoints import jac_from_affine, points_from_device
 from zerog_tpu_torch.field import FR, to_device, to_numpy
 
 torch.set_num_threads(1)
+
+SLOW = pytest.mark.skipif(not os.environ.get("ZEROG_SLOW_TESTS"),
+                          reason="compile-bound on XLA:CPU; set ZEROG_SLOW_TESTS=1")
 
 N = 64
 C = 5
 
 
 def ground(scalars, points):
-    acc = None
-    for s, p in zip(scalars, points):
-        acc = g1_add(acc, g1_mul(p, s))
-    return acc
+    """The MSM by zerog_tpu's host point sums (plain Python ints)."""
+    return j_g1_msm_host(scalars, points)
 
 
 @pytest.fixture(scope="module")
@@ -140,11 +143,92 @@ def test_pipeline_accumulators_match_reference(table, jax_table, case):
         assert np.array_equal(np.asarray(a).astype(np.uint32), to_numpy(b))
 
 
-def test_unported_strategies_raise(points):
+# The strategies at N = 32 points and B = 2 rows; "msm_device" is the scan
+# strategy's Jacobian window sums, at N = 16 and B = 1 (each of the W = 64
+# windows of c = 4 is one lane row, so this keeps it to ~2 s).
+STRATEGY_CASES = ["scan", "danaa", "segscan", "msm_device"]
+STRATEGY_N = 32
+
+
+@pytest.fixture(scope="module")
+def strategy_inputs(points, table):
+    pts = points[:STRATEGY_N]
+    pdev = points_to_device(pts, device="cpu")
+    # the table of the first STRATEGY_N points: the same rows of each window
+    w = int(table.tx.shape[0]) // N
+    table = tpp.WindowTable(C, STRATEGY_N, *(
+        a.reshape((w, N) + tuple(a.shape[1:]))[:, :STRATEGY_N].reshape(
+            (w * STRATEGY_N,) + tuple(a.shape[1:]))
+        for a in (table.tx, table.ty, table.tvalid)))
+    rnd = random.Random(13)
+    rows = [[rnd.randrange(FR.p) for _ in range(STRATEGY_N)] for _ in range(2)]
+    return pts, pdev, table, rows
+
+
+def _port_strategy(case, pdev, table, rows):
+    """The port's result of `case`: B affine points, or for msm_device the
+    Jacobian window sums of row 0 over the first 16 points."""
+    if case == "msm_device":
+        sl = to_device(j_to_limbs(np.asarray(rows[:1], dtype=object)[:, :16]),
+                       "cpu")
+        return tpp.msm_device(sl, pdev[0][:16], pdev[1][:16], pdev[2][:16],
+                              c=tpp.default_window(16))
+    return msm(rows, pdev, strategy=case, device="cpu",
+               table=table if case == "segscan" else None)
+
+
+@pytest.mark.parametrize("case", STRATEGY_CASES)
+def test_msm_strategies_match_ground_truth(strategy_inputs, case):
+    """scan, danaa (complete adds) and segscan (log-depth scan over the
+    merged-window table) give the MSM; msm_device's window sums are the
+    MSMs of each window's digits. zerog_tpu's host point sums are the
+    ground truth: its XLA:CPU compiles of these strategies take 39-69 s, so
+    the comparison with its msm runs with ZEROG_SLOW_TESTS=1 (below)."""
+    pts, pdev, table, rows = strategy_inputs
+    got = _port_strategy(case, pdev, table, rows)
+    if case != "msm_device":
+        assert got == [ground(r, pts) for r in rows]
+        return
+    c = tpp.default_window(16)
+    w = got[0].shape[1]
+    assert got[0].shape == (1, w, 16) and w == -(-254 // c)
+    sums = points_from_device(tuple(comp.reshape(w, 16) for comp in got))
+    for j in (0, 1, w // 2, w - 1):
+        digits = [(s >> (c * j)) % (1 << c) for s in rows[0][:16]]
+        assert sums[j] == ground(digits, pts[:16])
+
+
+@SLOW
+@pytest.mark.parametrize("case", STRATEGY_CASES)
+def test_msm_strategies_equal_reference(strategy_inputs, case):
+    """The same calls against zerog_tpu's msm with the same strategy (affine
+    points), and msm_device's Jacobian sums limb for limb."""
+    _, pdev, table, rows = strategy_inputs
+    jdev = tuple(jnp.asarray(to_numpy(a)) if a.dtype != torch.bool
+                 else jnp.asarray(a.numpy()) for a in pdev)
+    got = _port_strategy(case, pdev, table, rows)
+    if case == "msm_device":
+        sl = jnp.asarray(j_to_limbs(np.asarray(rows[:1], dtype=object)[:, :16]))
+        want = jpp.msm_device(sl, jdev[0][:16], jdev[1][:16], jdev[2][:16],
+                              c=jpp.default_window(16))
+        for a, b in zip(want, got):
+            assert np.array_equal(np.asarray(a), to_numpy(b))
+    elif case == "segscan":
+        jtable = jpp.WindowTable(table.c, table.n, jnp.asarray(to_numpy(table.tx)),
+                                 jnp.asarray(to_numpy(table.ty)),
+                                 jnp.asarray(table.tvalid.numpy()))
+        with jpp.msm_strategy("segscan"):
+            assert got == jpp.msm(rows, table=jtable)
+    else:
+        assert got == jpp.msm(rows, jdev, strategy=case)
+
+
+def test_unknown_strategy_raises(points):
     pdev = points_to_device(points, device="cpu")
-    for strategy in ("danaa", "scan", "segscan"):
-        with pytest.raises(NotImplementedError):
-            msm([[1] * N], pdev, strategy=strategy, device="cpu")
+    with pytest.raises(ValueError, match="unknown MSM strategy"):
+        msm([[1] * N], pdev, strategy="flush", device="cpu")
+    with pytest.raises(ValueError, match="requires a WindowTable"):
+        msm([[1] * N], pdev, strategy="segscan", device="cpu")
 
 
 def test_default_windows():

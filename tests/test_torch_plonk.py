@@ -191,3 +191,34 @@ def test_create_proof_refuses_foreign_device(carried):
         pytest.skip("only meaningful on a machine without a CUDA device")
     with pytest.raises(RuntimeError):
         create_proof(pk, srs, NibbleMulCircuit(3, 5), [[15]], device="cuda")
+
+
+@pytest.fixture(scope="module")
+def mesh_proof(carried):
+    """The same proof on a mesh of 8 CPU entries: point-sharded commitments,
+    four-step NTTs, the quotient on row blocks."""
+    from zerog_tpu_torch.parallel import make_mesh
+
+    _, _, srs, pk = carried
+    return create_proof(pk, srs, NibbleMulCircuit(3, 5), [[15]],
+                        rng_seed=b"k6-shared-proof",
+                        mesh=make_mesh(8, ["cpu"] * 8))
+
+
+def test_mesh_proof_equals_reference_bytes(mesh_proof, k6_proof):
+    assert mesh_proof == k6_proof
+
+
+def test_mesh_proof_passes_both_verifiers(carried, mesh_proof):
+    jsrs, jpk, srs, pk = carried
+    assert verify_proof(pk.vk, srs, [[15]], mesh_proof)
+    assert j_verify_proof(jpk.vk, jsrs, [[15]], mesh_proof)
+
+
+def test_mesh_must_start_on_the_srs_device(carried):
+    from zerog_tpu_torch.parallel import make_mesh
+
+    _, _, srs, pk = carried
+    with pytest.raises(ValueError, match="first entry"):
+        create_proof(pk, srs, NibbleMulCircuit(3, 5), [[15]],
+                     mesh=make_mesh(2, ["meta", "cpu"]))

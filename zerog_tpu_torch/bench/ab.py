@@ -134,8 +134,6 @@ def _twiddle_builder(xb, twc):
     def build(lib, spec):
         out = torch.empty((32, r, s * g), dtype=torch.int8, device=DEV)
         colsum = torch.empty(s * g, dtype=torch.int32, device=DEV)
-        stream = kernels.current_stream(DEV)
-
         def column_sums():
             torch.sum(out.view(32 * r, s * g), dim=0, dtype=torch.int32, out=colsum)
 
@@ -143,15 +141,17 @@ def _twiddle_builder(xb, twc):
             mid = torch.empty_like(xb)
 
             def run():
-                _check(lib.zg_ntt_twiddle(xb.data_ptr(), twc.data_ptr(),
-                                          mid.data_ptr(), s, r, g, stream))
+                with kernels.on_device(xb) as stream:
+                    _check(lib.zg_ntt_twiddle(xb.data_ptr(), twc.data_ptr(),
+                                              mid.data_ptr(), s, r, g, stream))
                 out.view(32, r, s, g).copy_(mid.view(32, s, r, g).transpose(1, 2))
                 column_sums()
         else:
             def run():
-                _check(lib.zg_ntt_twiddle(xb.data_ptr(), twc.data_ptr(),
-                                          out.data_ptr(), colsum.data_ptr(), s, r,
-                                          g, stream))
+                with kernels.on_device(xb) as stream:
+                    _check(lib.zg_ntt_twiddle(xb.data_ptr(), twc.data_ptr(),
+                                              out.data_ptr(), colsum.data_ptr(),
+                                              s, r, g, stream))
                 if spec["sum"]:
                     column_sums()
         return run, [out, colsum]
@@ -236,11 +236,10 @@ def _launcher(fn, ptrs, tail, outs):
     arguments and the stream."""
     def build(lib, spec):
         out = [torch.empty(shape, dtype=dtype, device=DEV) for shape, dtype in outs]
-        stream = kernels.current_stream(DEV)
-
         def run():
-            _check(getattr(lib, fn)(*ptrs, *(o.data_ptr() for o in out), *tail,
-                                    stream))
+            with kernels.on_device(out[0]) as stream:
+                _check(getattr(lib, fn)(*ptrs, *(o.data_ptr() for o in out),
+                                        *tail, stream))
         return run, out
     return build
 

@@ -82,9 +82,10 @@ def field_chain_words(params: FieldParams, a, b, k: int = DEFAULT_K):
     if b.device != a.device:
         raise ValueError("field_chain: operands on different devices")
     out = torch.empty_like(a)
-    code = kernels.lib().zg_field_chain(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-        0 if params.name == "Fq" else 1, k, kernels.current_stream(a.device))
+    with kernels.on_device(a) as stream:
+        code = kernels.lib().zg_field_chain(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+            0 if params.name == "Fq" else 1, k, stream)
     kernels.launched("field_chain", code)
     return out
 

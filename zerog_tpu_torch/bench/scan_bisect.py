@@ -143,9 +143,10 @@ def _wrapper(body: str):
         if sy.device != sx.device or flags.device != sx.device:
             raise ValueError(f"{name}: operands on different devices")
         out = torch.empty_like(sx)
-        code = kernels.lib().zg_scan_bisect(
-            BODIES.index(body), sx.data_ptr(), sy.data_ptr(), flags.data_ptr(),
-            out.data_ptr(), r, c, kernels.current_stream(sx.device))
+        with kernels.on_device(sx) as stream:
+            code = kernels.lib().zg_scan_bisect(
+                BODIES.index(body), sx.data_ptr(), sy.data_ptr(),
+                flags.data_ptr(), out.data_ptr(), r, c, stream)
         kernels.launched(name, code)
         return out
 

@@ -128,6 +128,7 @@ extern "C" int zg_ntt_epilogue(const void* acc, const void* colsum, const void* 
 #define ZG_TW_THREADS 256
 #define ZG_TW_ELEMS 768       // elements a tile aims at: 3 a thread
 #define ZG_TW_MIN_TILES 264   // tiles below which a tile is halved: 2 an SM of an H100
+#define ZG_MAX_DEVICES 64     // devices whose shared-memory attribute is tracked
 
 struct TwPlan {
     long s, r, g;
@@ -381,13 +382,19 @@ __global__ void __launch_bounds__(ZG_TW_THREADS, 4)
 template <int V>
 static int tw_launch(const int8_t* x, const uint32_t* tw, int8_t* out, int32_t* colsum,
                      const TwPlan& p, cudaStream_t stream) {
-    static bool attr = false;
-    if (!attr) {
-        cudaError_t e = cudaFuncSetAttribute(ntt_twiddle_kernel<V>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             227 * 1024);
+    // the attribute belongs to the current device's context: set it once on
+    // each device that launches
+    static bool attr[ZG_MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= ZG_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (!attr[dev]) {
+        e = cudaFuncSetAttribute(ntt_twiddle_kernel<V>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 227 * 1024);
         if (e != cudaSuccess) return (int)e;
-        attr = true;
+        attr[dev] = true;
     }
     ntt_twiddle_kernel<V><<<(unsigned)(p.nj2 * p.ni1 * p.ng), ZG_TW_THREADS, p.smem,
                             stream>>>(x, tw, out, colsum, p);

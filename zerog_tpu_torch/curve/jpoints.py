@@ -45,23 +45,31 @@ def jac_from_affine(x, y, valid=None):
     return (x, y, z)
 
 
+def _muls(*pairs):
+    """Independent products in one call of the field's mul: the operands
+    are broadcast to one shape and stacked on a new leading axis (a product
+    costs its ~75 torch ops once for every pair)."""
+    shape = torch.broadcast_shapes(*(t.shape for pair in pairs for t in pair))
+    a = torch.stack([x.expand(shape) for x, _ in pairs])
+    b = torch.stack([y.expand(shape) for _, y in pairs])
+    return _f.mul(a, b).unbind(0)
+
+
 def jac_double(p):
     x1, y1, z1 = p
     f = _f
-    a = f.square(x1)
-    b = f.square(y1)
-    c = f.square(b)
-    d = f.sub(f.square(f.add(x1, b)), f.add(a, c))
-    d = f.add(d, d)
+    a, b, yz = _muls((x1, x1), (y1, y1), (y1, z1))
+    xb = f.add(x1, b)
     e = f.add(f.add(a, a), a)
-    g = f.square(e)
+    c, xb2, g = _muls((b, b), (xb, xb), (e, e))
+    d = f.sub(xb2, f.add(a, c))
+    d = f.add(d, d)
     x3 = f.sub(g, f.add(d, d))
     c8 = f.add(c, c)
     c8 = f.add(c8, c8)
     c8 = f.add(c8, c8)
     y3 = f.sub(f.mul(e, f.sub(d, x3)), c8)
-    z3 = f.mul(y1, z1)
-    z3 = f.add(z3, z3)
+    z3 = f.add(yz, yz)
     return (x3, y3, z3)
 
 
@@ -77,28 +85,29 @@ def jac_select(cond, p, q):
     return tuple(out)
 
 
-def jac_add(p, q):
-    """Unified Jacobian addition handling identity and doubling lanes."""
+def _add_core(p, q):
+    """The general Jacobian sum of p and q (12M + 4S, in six calls of the
+    field's mul), with h and r: both zero where p == q."""
     f = _f
     x1, y1, z1 = p
     x2, y2, z2 = q
-    z1z1 = f.square(z1)
-    z2z2 = f.square(z2)
-    u1 = f.mul(x1, z2z2)
-    u2 = f.mul(x2, z1z1)
-    s1 = f.mul(y1, f.mul(z2, z2z2))
-    s2 = f.mul(y2, f.mul(z1, z1z1))
+    z1z1, z2z2 = _muls((z1, z1), (z2, z2))
+    u1, u2, z2c, z1c = _muls((x1, z2z2), (x2, z1z1), (z2, z2z2), (z1, z1z1))
+    s1, s2 = _muls((y1, z2c), (y2, z1c))
     h = f.sub(u2, u1)
     r = f.sub(s2, s1)
+    hh, rr, z1z2 = _muls((h, h), (r, r), (z1, z2))
+    hhh, v, z3 = _muls((h, hh), (u1, hh), (z1z2, h))
+    x3 = f.sub(f.sub(rr, hhh), f.add(v, v))
+    ry, sh = _muls((r, f.sub(v, x3)), (s1, hhh))
+    return (x3, f.sub(ry, sh), z3), h, r
 
-    hh = f.square(h)
-    hhh = f.mul(h, hh)
-    v = f.mul(u1, hh)
-    x3 = f.sub(f.sub(f.square(r), hhh), f.add(v, v))
-    y3 = f.sub(f.mul(r, f.sub(v, x3)), f.mul(s1, hhh))
-    z3 = f.mul(f.mul(z1, z2), h)
-    res = (x3, y3, z3)
 
+def jac_add(p, q):
+    """Unified Jacobian addition handling identity and doubling lanes."""
+    f = _f
+    z1, z2 = p[2], q[2]
+    res, h, r = _add_core(p, q)
     h_zero = f.is_zero(h)
     r_zero = f.is_zero(r)
     p_inf = f.is_zero(z1)
@@ -121,26 +130,9 @@ def jac_add_incomplete(p, q):
     probability ~2^-254 and would only corrupt the proof being built (the
     verifier rejects it), never soundness.
     """
-    f = _f
-    x1, y1, z1 = p
-    x2, y2, z2 = q
-    z1z1 = f.square(z1)
-    z2z2 = f.square(z2)
-    u1 = f.mul(x1, z2z2)
-    u2 = f.mul(x2, z1z1)
-    s1 = f.mul(y1, f.mul(z2, z2z2))
-    s2 = f.mul(y2, f.mul(z1, z1z1))
-    h = f.sub(u2, u1)
-    r = f.sub(s2, s1)
-    hh = f.square(h)
-    hhh = f.mul(h, hh)
-    v = f.mul(u1, hh)
-    x3 = f.sub(f.sub(f.square(r), hhh), f.add(v, v))
-    y3 = f.sub(f.mul(r, f.sub(v, x3)), f.mul(s1, hhh))
-    z3 = f.mul(f.mul(z1, z2), h)
-    res = (x3, y3, z3)
-    res = jac_select(f.is_zero(z1), q, res)
-    res = jac_select(f.is_zero(z2), p, res)
+    res, _, _ = _add_core(p, q)
+    res = jac_select(_f.is_zero(p[2]), q, res)
+    res = jac_select(_f.is_zero(q[2]), p, res)
     return res
 
 
@@ -155,17 +147,15 @@ def jac_madd_incomplete(p, qx, qy, qvalid):
     f = _f
     x1, y1, z1 = p
     z1z1 = f.square(z1)
-    u2 = f.mul(qx, z1z1)
-    s2 = f.mul(qy, f.mul(z1, z1z1))
+    u2, z1c = _muls((qx, z1z1), (z1, z1z1))
+    s2 = f.mul(qy, z1c)
     h = f.sub(u2, x1)
     r = f.sub(s2, y1)
-    hh = f.square(h)
-    hhh = f.mul(h, hh)
-    v = f.mul(x1, hh)
-    x3 = f.sub(f.sub(f.square(r), hhh), f.add(v, v))
-    y3 = f.sub(f.mul(r, f.sub(v, x3)), f.mul(y1, hhh))
-    z3 = f.mul(z1, h)
-    res = (x3, y3, z3)
+    hh, rr, z3 = _muls((h, h), (r, r), (z1, h))
+    hhh, v = _muls((h, hh), (x1, hh))
+    x3 = f.sub(f.sub(rr, hhh), f.add(v, v))
+    ry, yh = _muls((r, f.sub(v, x3)), (y1, hhh))
+    res = (x3, f.sub(ry, yh), z3)
     res = jac_select(f.is_zero(z1), jac_from_affine(qx, qy, qvalid), res)
     res = jac_select(qvalid, res, p)
     return res

@@ -101,11 +101,11 @@ def sum_rows_words(*planes):
         ptrs += [t.data_ptr() for t in job] + [t.data_ptr()
                                                for t in out[3 * j:3 * j + 3]]
     n = len(jobs)
-    code = kernels.lib().zg_sum_rows(
-        (ctypes.c_void_p * (6 * n))(*ptrs),
-        (ctypes.c_long * n)(*(l for l, _ in shapes)),
-        (ctypes.c_long * n)(*(ct for _, ct in shapes)), n,
-        kernels.current_stream(dev))
+    with kernels.on_device(out[0]) as stream:
+        code = kernels.lib().zg_sum_rows(
+            (ctypes.c_void_p * (6 * n))(*ptrs),
+            (ctypes.c_long * n)(*(l for l, _ in shapes)),
+            (ctypes.c_long * n)(*(ct for _, ct in shapes)), n, stream)
     kernels.launched("sum_rows", code)
     return out
 
@@ -121,10 +121,11 @@ def weighted_fold_words(x, y, z, bx, by, bz):
             raise ValueError("weighted_fold: operands on different devices")
     out = tuple(torch.empty((8, ct), dtype=torch.int32, device=x.device)
                 for _ in range(3))
-    code = kernels.lib().zg_weighted_fold(
-        x.data_ptr(), y.data_ptr(), z.data_ptr(),
-        bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
-        *(t.data_ptr() for t in out), k, ct, kernels.current_stream(x.device))
+    with kernels.on_device(x) as stream:
+        code = kernels.lib().zg_weighted_fold(
+            x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            bx.data_ptr(), by.data_ptr(), bz.data_ptr(),
+            *(t.data_ptr() for t in out), k, ct, stream)
     kernels.launched("weighted_fold", code)
     return out
 

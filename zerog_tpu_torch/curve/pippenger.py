@@ -1,7 +1,7 @@
 """Pippenger multi-scalar multiplication on tensors.
 
 Counterpart of ``zerog_tpu/curve/pippenger.py`` — the MSM behind every
-commitment of keygen and create_proof. Two strategies are ported:
+commitment of keygen and create_proof. Strategies, chosen by argument:
 
 - "pippenger" (default): bucketed column-scan Pippenger — sort by window
   digit, flush-scan bucket accumulation, marginal-split weighted sum. The
@@ -11,12 +11,17 @@ commitment of keygen and create_proof. Two strategies are ported:
   base points (SRS tau powers qualify: an internal add collision has
   probability ~2^-254 and would only corrupt the proof being built, which
   the verifier then rejects). Do NOT use it on structured point sets (e.g.
-  small multiples of G, adversarial proof-supplied points).
+  small multiples of G, adversarial proof-supplied points); use "danaa".
 - "fixed": the same bucket pipeline over a precomputed merged-window table
   (:func:`build_window_table`), one accumulation for all windows.
+- "segscan": the log-depth segmented-scan pipeline over the same table
+  (``msm_fixed_host(..., strategy="segscan")``).
+- "danaa": lane-parallel double-and-add with the unified (complete) add;
+  correct for arbitrary points.
+- "scan": the per-window segmented-scan pipeline (complete add),
+  :func:`msm_device`.
 
-The "danaa", "scan" and "segscan" strategies of the JAX package are not
-ported yet (ROADMAP.md, queue 1, item f).
+The last three are plain torch, as their counterparts are plain ``jnp``.
 
 Bucket accumulation has no cross-lane work in the hot loop: sort each
 (window, scalar-row) digit lane ONCE, lay the sorted points out column-major
@@ -39,7 +44,7 @@ with R/C marginals from two more reduce folds and the two small weighted
 sums from one final fold.
 
 The stable sorts fix the order in which points are added, hence the Jacobian
-limbs of every piece: both sorts here ask for ``stable=True``.
+limbs of every piece: every sort here asks for ``stable=True``.
 """
 
 from __future__ import annotations
@@ -53,14 +58,15 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..field import FR, FQ, jfq, shift_fill, to_limbs, from_limbs, to_device
 from .jpoints import (
-    jac_double, jac_from_affine, jac_infinity, jac_madd_incomplete,
-    points_from_device, points_to_device,
+    jac_add, jac_add_incomplete, jac_double, jac_from_affine, jac_infinity,
+    jac_madd_incomplete, jac_roll, jac_select, points_from_device,
+    points_to_device,
 )
 from .bn254 import G1_GEN, g1_add, g1_double, g1_mul
 from .pscan import flush_scan
 from .pfold import sum_rows_many, weighted
 
-__all__ = ["msm", "msm_pippenger_host", "msm_fixed_host",
+__all__ = ["msm", "msm_device", "msm_pippenger_host", "msm_fixed_host",
            "fixed_base_expand", "default_window", "default_fixed_window",
            "build_window_table", "WindowTable"]
 
@@ -73,6 +79,84 @@ def default_window(n: int) -> int:
 SCALAR_BITS = 254
 _PIP_R = 128       # least rows per column in the accumulation scan
 _INT32_MAX = (1 << 31) - 1
+
+
+def _digits(scalar_limbs, c: int, scalar_bits: int = SCALAR_BITS):
+    """[..., 16] canonical limbs -> int64[W, ...] window digits."""
+    num_windows = (scalar_bits + c - 1) // c
+    outs = []
+    for w in range(num_windows):
+        j, r = divmod(w * c, 16)
+        v = scalar_limbs[..., j] >> r
+        if j + 1 < 16 and r + c > 16:
+            v = v | (scalar_limbs[..., j + 1] << (16 - r))
+        outs.append(v & ((1 << c) - 1))
+    return torch.stack(outs, dim=0)
+
+
+def _suffix_scan(p, m: int):
+    """Inclusive suffix sum along axis 0 of a length-m batch of points:
+    out[i] = sum_{j>=i} p[j] (complete add)."""
+    idx = torch.arange(m, device=p[0].device)
+    for s in range(max(1, (m - 1).bit_length())):
+        shift = 1 << s
+        q = jac_roll(p, -shift)
+        p = jac_select(idx + shift < m, jac_add(p, q), p)
+    return p
+
+
+def _scatter_buckets(p, key, nb: int):
+    """Jacobian lanes p [G, M] into bucket slots [G, nb] (empty slots
+    all-zero, Z = 0 = infinity): lane (g, i) goes to slot key[g, i], and
+    key nb drops it (to a spare slot past the end, sliced off). The kept
+    keys of a group are distinct, so the scatter is deterministic."""
+    g, m = key.shape
+    packed = torch.cat(p, dim=-1).reshape(g * m, 48)
+    flat = torch.arange(g, device=key.device)[:, None] * (nb + 1) + key
+    out = torch.zeros((g * (nb + 1), 48), dtype=packed.dtype, device=key.device)
+    out[flat.reshape(-1)] = packed
+    out = out.reshape(g, nb + 1, 48)[:, :nb]
+    return out[..., :16], out[..., 16:32], out[..., 32:]
+
+
+def _one_window(d, px, py, pvalid, c: int):
+    """Window sums  sum_i d[g, i] * P_i  for digit rows d [G, n] in
+    [0, 2^c) over shared points [n, 16]: sort each row (stably, as
+    ``jnp.argsort``), a segmented inclusive scan over runs of equal digit,
+    each run's last lane into its bucket, then sum_b b * B_b by two suffix
+    scans. Returns Jacobian components [G, 16]."""
+    g, n = d.shape
+    dev = d.device
+    ds, order = torch.sort(d, dim=-1, stable=True)
+    val = pvalid[order] & (ds > 0)
+    p = jac_from_affine(px[order], py[order], valid=val)
+
+    idx = torch.arange(n, device=dev)
+    for s in range(max(1, (n - 1).bit_length())):
+        shift = 1 << s
+        q = jac_roll(p, shift, axis=1)
+        same = (ds == torch.roll(ds, shift, dims=1)) & (idx >= shift)
+        p = jac_select(same, jac_add(p, q), p)
+
+    is_end = torch.cat([ds[:, :-1] != ds[:, 1:],
+                        torch.ones((g, 1), dtype=torch.bool, device=dev)], dim=1)
+    nb = 1 << c
+    buckets = _scatter_buckets(p, torch.where(is_end & (ds > 0), ds, nb), nb)
+    # weighted sum over buckets 1..nb-1: two suffix passes, bucket axis first
+    s = tuple(torch.movedim(comp[:, 1:], 1, 0) for comp in buckets)
+    s = _suffix_scan(s, nb - 1)          # s[i] = sum_{b >= i+1} B_b
+    t = _suffix_scan(s, nb - 1)          # t[0] = sum_i s[i] = sum_b b*B_b
+    return tuple(comp[0] for comp in t)
+
+
+def msm_device(scalar_limbs, px, py, pvalid, c: int):
+    """scalar_limbs: [B, N, 16] canonical; points: mont affine [N, 16] on
+    the same device. Returns Jacobian window sums, components [B, W, 16].
+    Every window of every row runs in one batch of lanes."""
+    digits = _digits(scalar_limbs, c)                  # [W, B, N]
+    w, b, n = digits.shape
+    sums = _one_window(digits.reshape(w * b, n), px, py, pvalid, c)
+    return tuple(torch.movedim(comp.reshape(w, b, 16), 1, 0) for comp in sums)
 
 
 def _window_layout(c: int, total_bits: int = SCALAR_BITS):
@@ -438,10 +522,15 @@ def build_window_table(points_dev, c: int, device=None) -> WindowTable:
     return WindowTable(c, n, tx, ty, tvalid)
 
 
-def msm_fixed_host(sl, table: WindowTable):
+def msm_fixed_host(sl, table: WindowTable, strategy: str = "flush"):
     """Merged-window fixed-base MSM. sl: [B, N, 16] canonical scalar limbs
     on the table's device; table from build_window_table. Returns [B] affine
-    host points."""
+    host points. `strategy` "flush" runs the bucket pipeline of the flush
+    scan (the kernels on the card), "segscan" the log-depth segmented scan."""
+    if strategy == "segscan":
+        return _msm_fixed_segscan(sl, table)
+    if strategy != "flush":
+        raise ValueError(f"unknown fixed-base MSM strategy {strategy!r}")
     b = int(sl.shape[0])
     c = table.c
     m = int(table.tx.shape[0])
@@ -457,26 +546,202 @@ def msm_fixed_host(sl, table: WindowTable):
     return results
 
 
+# ---- log-depth segmented-scan bucket pipeline --------------------------------
+#
+# Alternative to the flush scan over the same merged-window table. Three
+# log-depth stages:
+#
+#   1. segmented inclusive scan (Hillis-Steele) over the sorted digit stream:
+#      log2(M) full-width steps, each ONE incomplete add over all M lanes
+#      (safe: operands are sums of disjoint subsets of distinct table points).
+#   2. one scatter of each segment's last lane into the bucket array.
+#   3. weighted bucket fold sum_k k*B_k via per-bucket bias injection
+#      B'_k = B_k + (k+1)*K — every partial sum carries a DISTINCT multiple
+#      of the bias point K, so incomplete adds cannot collide even between
+#      empty-bucket runs — then a log-depth suffix scan + log-depth tree
+#      reduction, and the host subtracts the known total bias multiple.
+
+#: lanes of one step of the segmented scan: rows of the batch are scanned in
+#: groups of at most this many lanes (each row is independent), which bounds
+#: the limb products' temporaries (~4 KB a lane)
+_SEGSCAN_LANES = 1 << 19
+
+
+def _segscan_prep(sl, tx, ty, tv, c: int):
+    """Sort the merged digit stream (stably) and gather table points into
+    stream order. Returns (ds, gx, gy, gv, seg_id, last)."""
+    digits = _digits_balanced(sl, c)                # [W, B, N]
+    w, b, n = digits.shape
+    ds = torch.movedim(digits, 0, 1).reshape(b, w * n)
+    ds = torch.where(tv[None, :], ds, torch.zeros_like(ds))  # invalid -> bucket 0
+    ds, order = torch.sort(ds, dim=-1, stable=True)
+    gx, gy, gv = tx[order], ty[order], tv[order]
+    new_seg = torch.cat(
+        [torch.ones((b, 1), dtype=torch.bool, device=ds.device),
+         ds[:, 1:] != ds[:, :-1]], dim=1)
+    seg_id = torch.cumsum(new_seg.to(torch.int64), dim=1)
+    last = torch.cat([new_seg[:, 1:],
+                      torch.ones((b, 1), dtype=torch.bool, device=ds.device)],
+                     dim=1)
+    return ds, gx, gy, gv, seg_id, last
+
+
+def _segscan_run(gx, gy, gv, seg_id, steps: int):
+    """Hillis-Steele segmented inclusive point scan along axis 1: after
+    `steps` rounds each lane holds the sum of the up-to-2^steps preceding
+    lanes of its segment. Shifted-in point lanes are all-zero (Z = 0,
+    infinity) and shifted-in segment ids -1 (no segment), so no wraparound
+    masking is needed."""
+    acc = jac_from_affine(gx, gy, gv)
+    for s in range(steps):
+        shift = 1 << s
+        shifted = tuple(shift_fill(comp, shift, fill=0, axis=1) for comp in acc)
+        ok = seg_id == shift_fill(seg_id, shift, fill=-1, axis=1)
+        acc = jac_select(ok, jac_add_incomplete(acc, shifted), acc)
+    return acc
+
+
+def _segscan_buckets(acc, ds, last, c: int):
+    """Scatter each segment's final lane into [B, 2^c] bucket slots. Bucket
+    0 is dropped (weight 0), and so are the lanes that end no segment."""
+    nb = 1 << c
+    return _scatter_buckets(acc, torch.where(last & (ds > 0), ds, nb), nb)
+
+
+_SEGSCAN_BIAS: dict = {}
+
+
+def _segscan_bias(c: int, device):
+    """Table of multiples (k+1)*K for k = 0..2^c-1 on `device` (built with
+    the COMPLETE add — equal operands occur while doubling), plus the host
+    total bias multiple M_total = sum_{j=1}^{nb-1} sum_{k=j}^{nb-1} (k+1).
+    Cached per (c, device)."""
+    key = (c, str(device))
+    hit = _SEGSCAN_BIAS.get(key)
+    if hit is not None:
+        return hit
+    nb = 1 << c
+    _, (kx, ky, kz) = _pip_bias(device)
+    arr = tuple(comp.expand(nb, 16) for comp in (kx, ky, kz))
+    for s in range(c):
+        shifted = tuple(shift_fill(comp, 1 << s, fill=0, axis=0) for comp in arr)
+        arr = jac_add(arr, shifted)
+    m_total = sum((nb * (nb + 1) - j * (j + 1)) // 2 for j in range(1, nb))
+    hit = _SEGSCAN_BIAS[key] = (arr, m_total)
+    return hit
+
+
+def _segscan_fold(bx, by, bz, bias, c: int):
+    """sum_k k*B_k via biased suffix scan: S_j = sum_{k>=j} (B_k + (k+1)K),
+    then T = sum_{j>=1} S_j; the caller subtracts M_total*K. Incomplete adds
+    are collision-free because every operand embeds a distinct multiple of
+    K. Backward shifts bring in all-zero (infinity) lanes, which the
+    incomplete add treats as identity — no edge masking needed."""
+    nb = 1 << c
+    b = bx.shape[0]
+    acc = jac_add_incomplete(
+        (bx, by, bz), tuple(comp.expand(b, nb, 16) for comp in bias))
+
+    def suffix(acc, shift):
+        shifted = tuple(shift_fill(comp, shift, fill=0, axis=1, backward=True)
+                        for comp in acc)
+        return jac_add_incomplete(acc, shifted)
+
+    for s in range(c):
+        acc = suffix(acc, 1 << s)
+    # drop S_0 (weight starts at j=1), then tree-reduce lanes 1..nb-1
+    first = torch.arange(nb, device=bx.device)[None, :] == 0
+    acc = jac_select(first, jac_infinity((b, nb), device=bx.device), acc)
+    for s in reversed(range(c)):
+        acc = suffix(acc, 1 << s)
+    return tuple(comp[:, 0] for comp in acc)
+
+
+def _msm_fixed_segscan(sl, table: WindowTable):
+    c = table.c
+    ds, gx, gy, gv, seg_id, last = _segscan_prep(
+        sl, table.tx, table.ty, table.tvalid, c=c)
+    b, m = ds.shape
+    # full log2(M) steps always, as the reference: enough for the worst skew
+    steps = max(1, int(m - 1).bit_length())
+    rows = max(1, _SEGSCAN_LANES // m)
+    parts = [_segscan_run(gx[i:i + rows], gy[i:i + rows], gv[i:i + rows],
+                          seg_id[i:i + rows], steps)
+             for i in range(0, b, rows)]
+    acc = tuple(torch.cat([part[k] for part in parts], dim=0) for k in range(3))
+    bx, by, bz = _segscan_buckets(acc, ds, last, c=c)
+    bias, m_total = _segscan_bias(c, bx.device)
+    host = points_from_device(_segscan_fold(bx, by, bz, bias, c=c))
+    kp, _ = _pip_bias_np()
+    neg_bias_total = g1_mul((kp[0], (-kp[1]) % FQ.p), m_total)
+    return [g1_add(pt, neg_bias_total) for pt in host]
+
+
+# ---- lane-parallel double-and-add -------------------------------------------
+
+BIT_CHUNK = 32
+
+
+def _bits_device(scalar_limbs):
+    """[B, N, 16] -> bool[256, B, N], MSB first (top 2 bits are zero for
+    canonical Fr scalars; leading zeros are free in double-and-add)."""
+    rows = [((scalar_limbs[..., j // 16] >> (j % 16)) & 1) > 0
+            for j in range(255, -1, -1)]
+    return torch.stack(rows, dim=0)
+
+
+def _danaa_chunk(acc, bits_chunk, px, py, pvalid):
+    """BIT_CHUNK double-and-add steps. acc: Jacobian [B, N]; bits_chunk:
+    bool[BIT_CHUNK, B, N] (MSB first)."""
+    b, n = bits_chunk.shape[1], bits_chunk.shape[2]
+    base = jac_from_affine(px.expand(b, n, 16), py.expand(b, n, 16),
+                           pvalid.expand(b, n))
+    for bit_row in bits_chunk:
+        acc = jac_double(acc)
+        acc = jac_select(bit_row, jac_add(acc, base), acc)
+    return acc
+
+
+def _reduce_lanes(acc):
+    """Fold the N axis of Jacobian [B, N] points into [B]."""
+    n = acc[0].shape[1]
+    total = _suffix_scan(tuple(torch.swapaxes(comp, 0, 1) for comp in acc), n)
+    return tuple(comp[0] for comp in total)
+
+
+def _msm_danaa_device(bits, px, py, pvalid):
+    """Lane-parallel double-and-add MSM. bits: bool[256, B, N] (MSB first);
+    points: mont affine [N, 16]. Returns Jacobian [B] points. The complete
+    (unified) add makes this the safe strategy for arbitrary point sets."""
+    b, n = bits.shape[1], bits.shape[2]
+    acc = jac_infinity((b, n), device=px.device)
+    for i in range(0, 256, BIT_CHUNK):
+        acc = _danaa_chunk(acc, bits[i:i + BIT_CHUNK], px, py, pvalid)
+    return _reduce_lanes(acc)
+
+
+STRATEGIES = ("pippenger", "fixed", "segscan", "danaa", "scan")
+
+
 def msm(scalars, points_dev=None, c: int | None = None,
         strategy: str = "pippenger", table: WindowTable | None = None,
         device=None):
     """Host-facing MSM.
 
     scalars: 2D list/array [B][N] of ints in [0, r) (or 1D for B=1);
-    points_dev: (px, py, pvalid) from :func:`points_to_device`, or pass
-    `table` (a :class:`WindowTable`) to use the merged-window fixed-base
-    path (strategy "fixed"). `device=None` means the CUDA card.
+    points_dev: (px, py, pvalid) from :func:`points_to_device` for the
+    strategies "pippenger", "danaa" and "scan", or pass `table` (a
+    :class:`WindowTable`) for the merged-window fixed-base path ("fixed",
+    or "segscan"). `device=None` means the CUDA card.
     Returns list of B affine points (or a single point for 1D input).
     """
     device = resolve_device(device)
-    if strategy not in ("pippenger", "fixed"):
-        raise NotImplementedError(
-            f"MSM strategy {strategy!r} is not ported yet (ROADMAP.md, "
-            "queue 1, item f: segscan/danaa/scan strategies)")
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown MSM strategy {strategy!r}")
     single = not isinstance(scalars[0], (list, tuple, np.ndarray))
     if single:
         scalars = [scalars]
-    if table is not None:
+    if table is not None and strategy != "segscan":
         strategy = "fixed"
     b_real = len(scalars)
     b_pad = 1
@@ -486,16 +751,30 @@ def msm(scalars, points_dev=None, c: int | None = None,
         scalars = list(scalars) + [[0] * len(scalars[0])] * (b_pad - b_real)
     sl = to_device(to_limbs(np.asarray(scalars, dtype=object) % FR.p), device)
 
-    if strategy == "fixed":
+    if strategy in ("fixed", "segscan"):
         if table is None:
-            raise ValueError("strategy='fixed' requires a WindowTable")
-        results = msm_fixed_host(sl, table)
+            raise ValueError(f"strategy={strategy!r} requires a WindowTable")
+        results = msm_fixed_host(
+            sl, table, strategy="segscan" if strategy == "segscan" else "flush")
+        results = results[:b_real]
+        return results[0] if single else results
+
+    px, py, pvalid = (torch.as_tensor(a).to(device) for a in points_dev)
+    if c is None:
+        c = default_window(px.shape[0])
+    if strategy == "pippenger":
+        results = msm_pippenger_host(sl, px, py, pvalid, c)[:b_real]
+    elif strategy == "danaa":
+        acc = _msm_danaa_device(_bits_device(sl), px, py, pvalid)
+        results = points_from_device(tuple(comp[:b_real] for comp in acc))
     else:
-        px, py, pvalid = (torch.as_tensor(a).to(device) for a in points_dev)
-        if c is None:
-            c = default_window(px.shape[0])
-        results = msm_pippenger_host(sl, px, py, pvalid, c)
-    results = results[:b_real]
+        # "scan": window sums normalized in one host batch, folded on the host
+        sums = tuple(comp[:b_real] for comp in msm_device(sl, px, py, pvalid, c))
+        w = sums[0].shape[1]
+        affine = points_from_device(tuple(comp.reshape(b_real * w, 16)
+                                          for comp in sums))
+        results = [_fold_windows_host(affine[i * w:(i + 1) * w], c)
+                   for i in range(b_real)]
     return results[0] if single else results
 
 

@@ -112,10 +112,11 @@ def _scan_launch(name: str, sx, sy, third, third_dtype, flags):
     pieces = tuple(torch.empty_like(sx) for _ in range(3))
     carry = tuple(torch.empty((8, ct), dtype=torch.int32, device=sx.device)
                   for _ in range(3))
-    code = getattr(kernels.lib(), "zg_" + name)(
-        sx.data_ptr(), sy.data_ptr(), third.data_ptr(), flags.data_ptr(),
-        *(t.data_ptr() for t in pieces), *(t.data_ptr() for t in carry),
-        r, ct, kernels.current_stream(sx.device))
+    with kernels.on_device(sx) as stream:
+        code = getattr(kernels.lib(), "zg_" + name)(
+            sx.data_ptr(), sy.data_ptr(), third.data_ptr(), flags.data_ptr(),
+            *(t.data_ptr() for t in pieces), *(t.data_ptr() for t in carry),
+            r, ct, stream)
     kernels.launched(name, code)
     return pieces + carry
 

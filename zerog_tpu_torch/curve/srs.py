@@ -105,10 +105,12 @@ class Srs:
             return 4
         return 2
 
-    def window_table(self, basis: str):
+    def window_table(self, basis: str, min_n: int | None = None):
         """Cached merged-window table (see pippenger.build_window_table) for
-        one of the two fixed SRS point sets; None below FIXED_MIN_N."""
-        if self.n < self.FIXED_MIN_N:
+        one of the two fixed SRS point sets; None below `min_n`
+        (FIXED_MIN_N unless given: the mesh path takes a table at any
+        size)."""
+        if self.n < (self.FIXED_MIN_N if min_n is None else min_n):
             return None
         if basis not in self._tables:
             c = default_fixed_window(self.n)

@@ -6,14 +6,16 @@ module boundary:
 - A field element is a little-endian array of 16 limbs x 16 bits in the last
   axis of an ``int64`` tensor (PyTorch has no add, shift or compare for
   ``uint32`` on the CPU; a 16x16-limb schoolbook column of 16-bit products
-  stays under 2^37, so int64 lanes never overflow).
+  stays under 2^36, so int64 lanes never overflow).
 - Multiplication is Montgomery with R = 2^256:
       T = a * b                         (31 column sums, one outer product)
       m = (T mod R) * (-p^{-1}) mod R   (low-half convolution)
       res = (T + m * p) / R             (convolution + exact shift)
-  followed by one conditional subtraction. Any Montgomery product that ends
-  fully reduced in [0, p) has the same canonical limbs, so results equal the
-  JAX package's limb for limb.
+  followed by one conditional subtraction. The convolutions are matrix
+  products in float64, which hold every product and column sum exactly
+  (each under 2^53). Any Montgomery product that ends fully reduced in
+  [0, p) has the same canonical limbs, so results equal the JAX package's
+  limb for limb.
 - Carry propagation is not a 32-step ripple: two shift-and-add passes bring
   every limb under 2^16 + 33, and the remaining 0/1 carries are resolved by
   one integer addition of the packed generate/propagate masks (the carry
@@ -75,6 +77,19 @@ def _arange(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
+def _carry_passes(cols, passes: int):
+    """`passes` shift-and-add rounds: each column keeps its low 16 bits and
+    takes the high bits of the column below. Returns the columns and the sum
+    of the carries out of the top one (None after no pass)."""
+    top = None
+    for _ in range(passes):
+        hi = cols >> LIMB_BITS
+        cols = cols & MASK
+        cols[..., 1:] += hi[..., :-1]
+        top = hi[..., -1] if top is None else top + hi[..., -1]
+    return cols, top
+
+
 def _normalize(cols, ncols: int, passes: int):
     """Carry-propagate non-negative int64 columns into canonical 16-bit limbs.
     Returns (limbs [..., ncols], carry [...]) with value(cols) = value(limbs)
@@ -90,11 +105,7 @@ def _normalize(cols, ncols: int, passes: int):
         cols = F.pad(cols, (0, ncols - m))
     elif m > ncols:
         cols = cols[..., :ncols]
-    top = None
-    for _ in range(passes):
-        hi = cols >> LIMB_BITS
-        cols = (cols & MASK) + F.pad(hi[..., :-1], (1, 0))
-        top = hi[..., -1] if top is None else top + hi[..., -1]
+    cols, top = _carry_passes(cols, passes)
     low = cols & MASK
     g = cols >> LIMB_BITS                       # 0 or 1
     w = _pow2(ncols, cols.device)
@@ -107,17 +118,36 @@ def _normalize(cols, ncols: int, passes: int):
     return limbs, (cout if top is None else top + cout)
 
 
+@functools.cache
+def _column_sums(device) -> torch.Tensor:
+    """[256, 32] float64 0/1 matrix: row 16 i + j has its one in column
+    i + j (column 31 stays zero, so a product has 32 columns)."""
+    idx = torch.arange(NLIMB * NLIMB)
+    out = torch.zeros(NLIMB * NLIMB, 2 * NLIMB, dtype=torch.float64)
+    out[idx, idx // NLIMB + idx % NLIMB] = 1
+    return out.to(device)
+
+
+def _toeplitz(limbs: np.ndarray, ncols: int) -> np.ndarray:
+    """[16, ncols] float64: row i holds `limbs` from column i on, so that
+    x @ T is the convolution of x with `limbs`, cut to `ncols` columns."""
+    out = np.zeros((NLIMB, ncols), dtype=np.float64)
+    for i in range(NLIMB):
+        k = min(NLIMB, ncols - i)
+        if k > 0:
+            out[i, i:i + k] = limbs[:k]
+    return out
+
+
 def _conv(a, b):
-    """Column sums of the limb product: a [..., 16] x b [..., 16] (or [16])
-    -> [..., 31], column k = sum_{i+j=k} a_i * b_j. One outer product, then
-    the anti-diagonals are summed by a skewed view (row i shifted right by
-    i), so no per-limb loop."""
-    outer = a.unsqueeze(-1) * b.unsqueeze(-2)            # [..., 16, 16]
-    lead = outer.shape[:-2]
-    skew = F.pad(outer, (0, NLIMB)).reshape(lead + (2 * NLIMB * NLIMB,))
-    skew = skew[..., : NLIMB * (2 * NLIMB - 1)].reshape(
-        lead + (NLIMB, 2 * NLIMB - 1))
-    return skew.sum(-2)
+    """Column sums of the limb product: a [..., 16] x b [..., 16] -> [..., 32],
+    column k = sum_{i+j=k} a_i * b_j (column 31 is zero). One outer product
+    and one matrix product in float64: every product of two limbs is under
+    2^32 and every column sum under 2^36, so float64 holds them exactly and
+    any order of summation gives the same integers."""
+    outer = a.unsqueeze(-1).to(torch.float64) * b.unsqueeze(-2).to(torch.float64)
+    flat = outer.reshape(outer.shape[:-2] + (NLIMB * NLIMB,))
+    return (flat @ _column_sums(a.device)).to(torch.int64)
 
 
 class JField:
@@ -136,6 +166,13 @@ class JField:
         self.r2_limbs = _int_to_limbs_np(params.to_mont(params.r_mont))  # R^2 in "plain" limbs
         self.one_mont = _int_to_limbs_np(params.r_mont)  # 1 in Montgomery form
         self.zero = _int_to_limbs_np(0)
+        # float64 convolution matrices of mul (see there): the product by p,
+        # and the low half of the product by n' for the two 16-bit halves of
+        # a column side by side
+        self.p_conv = _toeplitz(self.p_limbs, 2 * NLIMB)
+        low = _toeplitz(self.n_prime, NLIMB)
+        self.nprime_conv = np.block([[low, np.zeros_like(low)],
+                                     [np.zeros_like(low), low]])
         self._dev_consts = {}
 
     # -- helpers -----------------------------------------------------------
@@ -177,13 +214,21 @@ class JField:
     def mul(self, a, b):
         """Montgomery product: (a * b * R^{-1}) mod p."""
         dev = a.device
-        t = _conv(a, b)                                        # < 2^37
+        t = _conv(a, b)                                        # < 2^36
         # m = T_lo * n' mod 2^256 straight from the raw low columns (their
-        # value is T mod 2^256 up to multiples of 2^256): columns < 2^57
-        mcols = _conv(t[..., :NLIMB], self._c("n_prime", dev))[..., :NLIMB]
-        m, _ = _normalize(mcols, NLIMB, 3)
-        s = t + _conv(m, self._c("p_limbs", dev))              # < 2^38
-        limbs, _ = _normalize(s, 2 * NLIMB, 2)
+        # value is T mod 2^256 up to multiples of 2^256). A column times a
+        # limb of n' may pass 2^53, so each column goes in as its two 16-bit
+        # halves and their products are put together in int64: < 2^57
+        low = t[..., :NLIMB]
+        halves = torch.cat([low & MASK, low >> LIMB_BITS], dim=-1)
+        mh = (halves.to(torch.float64) @ self._c("nprime_conv", dev)).to(torch.int64)
+        # three passes bring m's columns under 2^16 + 2^11; m counts only
+        # mod 2^256 (the carries out of the top are multiples of it) and by
+        # its size, under 1.04 * 2^256, which keeps (T + m*p)/R under
+        # p^2/R + 1.04 p < 2p, so it needs no final ripple
+        m, _ = _carry_passes(mh[..., :NLIMB] + (mh[..., NLIMB:] << LIMB_BITS), 3)
+        mp = (m.to(torch.float64) @ self._c("p_conv", dev)).to(torch.int64)
+        limbs, _ = _normalize(t + mp, 2 * NLIMB, 2)            # < 2^38
         # (T + m*p)/R < 2p < 2^255: the high half, top carry 0
         return self._cond_sub_p(limbs[..., NLIMB:])
 

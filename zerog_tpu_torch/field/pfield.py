@@ -82,10 +82,10 @@ def field_binop_words(op: str, params: FieldParams, a, b):
     if b.device != a.device:
         raise ValueError("field_binop: operands on different devices")
     out = torch.empty_like(a)
-    code = kernels.lib().zg_field_binop(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-        0 if params.name == "Fq" else 1, _OPS[op],
-        kernels.current_stream(a.device))
+    with kernels.on_device(a) as stream:
+        code = kernels.lib().zg_field_binop(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+            0 if params.name == "Fq" else 1, _OPS[op], stream)
     kernels.launched("field_binop", code)
     return out
 

@@ -20,6 +20,7 @@ Each wrapper that launches a kernel registers itself here and carries a
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -31,7 +32,7 @@ import torch
 
 __all__ = ["build", "load", "lib", "demangle", "register", "launch_counts",
            "reset_launch_counts", "to_word_planes", "from_word_planes",
-           "check_planes", "current_stream", "BUILD_INFO"]
+           "check_planes", "on_device", "BUILD_INFO"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -182,8 +183,14 @@ def lib():
     return _LIB
 
 
-def current_stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+@contextlib.contextmanager
+def on_device(t: torch.Tensor):
+    """Make the device that holds tensor `t` current and yield the handle of
+    its current stream: a launch inside goes to that device's context, so a
+    kernel runs where its operands lie, also on a card other than the current
+    one. Every ``zg_*`` launch is made inside this context."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---- launch counters -----------------------------------------------------------

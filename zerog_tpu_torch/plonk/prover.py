@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..field import FR, jfr, to_limbs, to_device
+from ..parallel.mesh import gather, mesh_key, shard_axis
 from ..poly.domain import Domain, get_domain
 from ..transcript import KeccakTranscriptWriter
 from .assignment import Assignment
@@ -116,13 +117,16 @@ class _Ext:
 class _EnvOps:
     """Expression ops over the env dictionary of extended-domain tensors."""
 
-    def __init__(self, env, domain):
+    def __init__(self, env, domain, device):
         self.env = env
         self.domain = domain
+        self.device = device
         self.f = jfr()
         self._consts = {}
 
-    def rot(self, arr, rotation):
+    def rot(self, key, index, rotation):
+        """Row `index` of env[key], rotated by `rotation` base-domain steps."""
+        arr = self.env[key][index]
         if rotation == 0:
             return arr
         return self.domain.rotate_extended(arr, rotation)
@@ -131,17 +135,17 @@ class _EnvOps:
         v = self._consts.get(c)
         if v is None:
             v = self._consts[c] = to_device(
-                to_limbs(c % FR.p, FR, mont=True), self.domain.device)
+                to_limbs(c % FR.p, FR, mont=True), self.device)
         return v
 
     def fixed(self, col, rot):
-        return self.rot(self.env["fix"][col], rot)
+        return self.rot("fix", col, rot)
 
     def advice(self, col, rot):
-        return self.rot(self.env["adv"][col], rot)
+        return self.rot("adv", col, rot)
 
     def instance(self, col, rot):
-        return self.rot(self.env["inst"][col], rot)
+        return self.rot("inst", col, rot)
 
     def add(self, a, b):
         return self.f.add(a, b)
@@ -161,6 +165,23 @@ class _EnvOps:
         if column.kind == "fixed":
             return self.env["fix"][column.index]
         return self.env["inst"][column.index]
+
+
+class _ShardOps(_EnvOps):
+    """The ops of mesh entry `e` over its row block of every extended-domain
+    tensor: a rotation reads the rows it needs from the neighbouring blocks
+    (``ShardedDomain.rotate_extended_sharded``)."""
+
+    def __init__(self, envs, e, domain, device):
+        super().__init__(envs[e], domain, device)
+        self.envs = envs
+        self.e = e
+
+    def rot(self, key, index, rotation):
+        if rotation == 0:
+            return self.env[key][index]
+        return self.domain.rotate_extended_sharded(
+            [env[key][index] for env in self.envs], self.e, rotation)
 
 
 def _quotient_term_fns(cs, bf):
@@ -191,7 +212,7 @@ def _quotient_term_fns(cs, bf):
 
         for i in range(1, num_sets):
             def perm_chain(ops, env, i=i):
-                prev = ops.rot(env["perm_z"][i - 1], -(bf + 1))
+                prev = ops.rot("perm_z", i - 1, -(bf + 1))
                 return ops.mul(env["l0"], ops.sub(env["perm_z"][i], prev))
 
             term_fns.append(perm_chain)
@@ -200,9 +221,8 @@ def _quotient_term_fns(cs, bf):
             cols = cs.permutation_columns[start : start + chunk]
 
             def perm_prod(ops, env, si=si, cols=cols, start=start):
-                z = env["perm_z"][si]
-                left = ops.rot(z, 1)
-                right = z
+                left = ops.rot("perm_z", si, 1)
+                right = env["perm_z"][si]
                 for j, col in enumerate(cols, start=start):
                     ve = ops.col(col)
                     sig = env["sigma"][j]
@@ -225,7 +245,7 @@ def _quotient_term_fns(cs, bf):
             # returns the 5 terms of this lookup, in verifier order
             one = env["one"]
             z = env["lookup_z"][li]
-            z_next = ops.rot(z, 1)
+            z_next = ops.rot("lookup_z", li, 1)
             a_perm = env["lk_aux"][2 * li]
             s_perm = env["lk_aux"][2 * li + 1]
 
@@ -248,7 +268,7 @@ def _quotient_term_fns(cs, bf):
                                      ops.add(s_comp, env["gamma"])))
             t3 = ops.mul(env["l_active"], ops.sub(lhs, rhs))
             t4 = ops.mul(env["l0"], ops.sub(a_perm, s_perm))
-            a_prev = ops.rot(a_perm, -1)
+            a_prev = ops.rot("lk_aux", 2 * li, -1)
             t5 = ops.mul(env["l_active"],
                          ops.mul(ops.sub(a_perm, s_perm),
                                  ops.sub(a_perm, a_prev)))
@@ -259,10 +279,10 @@ def _quotient_term_fns(cs, bf):
     return term_fns
 
 
-def _eval_quotient(term_fns, env, domain, h):
+def _eval_quotient(term_fns, ops, h):
     """h <- h*y + term for every quotient term, in exact verifier order."""
-    ops = _EnvOps(env, domain)
     f = ops.f
+    env = ops.env
     for fn in term_fns:
         out = fn(ops, env)
         terms = out if isinstance(out, list) else [out]
@@ -274,11 +294,19 @@ def _eval_quotient(term_fns, env, domain, h):
 
 
 def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
-                 transcript=None, debug=None, timings=None, device=None):
+                 transcript=None, debug=None, timings=None, device=None,
+                 mesh=None):
     """instances: list of per-column public value lists. Returns proof bytes.
 
     `device=None` means the SRS's device (the CUDA card unless the SRS was
     made for the CPU); a device that differs from the SRS's is refused.
+
+    `mesh`: optional :class:`zerog_tpu_torch.parallel.Mesh` whose first
+    entry is the SRS's device. Commitment MSMs shard the points over its
+    entries (``ShardedSrs``), the NTTs run the four-step decomposition
+    (``ShardedDomain``) and the quotient is evaluated on row blocks, one an
+    entry. All arithmetic is exact, so the proof bytes are those of the
+    single-device path under the same seed.
 
     `timings`: optional dict filled with per-phase wall times. When it is
     given on a CUDA device, the device is synchronized before each mark, so
@@ -286,6 +314,11 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
     """
     from ..device import resolve_device
 
+    if mesh is not None:
+        from ..parallel.sharded_prover import ShardedSrs
+
+        if not isinstance(srs, ShardedSrs):
+            srs = ShardedSrs(srs, mesh)
     device = srs.device if device is None else resolve_device(device)
     if device != srs.device:
         raise ValueError(f"create_proof: device {device} differs from the "
@@ -306,6 +339,9 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
     k = vk.k
     n = 1 << k
     domain = get_domain(k, cs.degree(), device=device)
+    if mesh is not None:
+        domain = _sharded_domain(domain, mesh)
+    mkey = None if mesh is None else mesh_key(mesh)
     usable = cs.usable_rows(n)
     bf = cs.blinding_factors()
     rng = Drbg(rng_seed)
@@ -414,8 +450,8 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
     # ---- phase 5: quotient on extended domain (device) --------------------
     # The extended-domain environment (_Ext: l0/l_last/l_active/x_ext) and
     # the fixed/sigma column forms are witness-INDEPENDENT, so they are
-    # computed once per pk and device and cached.
-    static_key = ("ext_static", str(device))
+    # computed once per pk, device and mesh and cached.
+    static_key = ("ext_static", str(device), mkey)
     static = pk._cache.get(static_key)
     if static is None:
         ext = _Ext(domain, cs)
@@ -474,12 +510,32 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
     )
 
     _mark("quotient_ntts")
-    term_fns = pk._cache.get("quotient_term_fns")
+    term_key = ("quotient_term_fns", mkey)
+    term_fns = pk._cache.get(term_key)
     if term_fns is None:
-        term_fns = pk._cache["quotient_term_fns"] = _quotient_term_fns(cs, bf)
+        term_fns = pk._cache[term_key] = _quotient_term_fns(cs, bf)
 
-    h_ext = torch.zeros((domain.extended_n, 16), dtype=torch.int64, device=device)
-    h_ext = _eval_quotient(term_fns, env, domain, h_ext)
+    n_ext = domain.extended_n
+    if mesh is None:
+        h_ext = torch.zeros((n_ext, 16), dtype=torch.int64, device=device)
+        h_ext = _eval_quotient(term_fns, _EnvOps(env, domain, device), h_ext)
+    else:
+        # row-shard the extended domain: entry e evaluates every term on its
+        # block of rows (the rest of the env is copied to each entry); h_ext
+        # is gathered before the vanishing division
+        def parts(val):
+            if val is not None and val.dim() >= 2 and val.shape[-2] == n_ext:
+                return shard_axis(mesh, val, axis=-2)
+            return [None if val is None else val.to(dev) for dev in mesh]
+
+        by_key = {key: parts(val) for key, val in env.items()}
+        envs = [{key: p[e] for key, p in by_key.items()}
+                for e in range(len(mesh))]
+        h_ext = gather([
+            _eval_quotient(term_fns, _ShardOps(envs, e, domain, dev),
+                           torch.zeros((n_ext // len(mesh), 16),
+                                       dtype=torch.int64, device=dev))
+            for e, dev in enumerate(mesh)], axis=0, device=device)
     _mark("quotient_eval")
     h_ext = domain.divide_by_vanishing_poly(h_ext)
     if debug is not None:
@@ -613,6 +669,21 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
 
     _mark("multiopen")
     return transcript.finalize()
+
+
+_SHARDED_DOMAINS: dict = {}
+
+
+def _sharded_domain(domain, mesh):
+    """The ShardedDomain of (k, extended k, mesh), cached: its four-step
+    plans and twiddles persist across proofs."""
+    key = (domain.k, domain.extended_k, mesh_key(mesh))
+    sd = _SHARDED_DOMAINS.get(key)
+    if sd is None:
+        from ..parallel.sharded_domain import ShardedDomain
+
+        sd = _SHARDED_DOMAINS[key] = ShardedDomain(domain, mesh)
+    return sd
 
 
 def _bary_single(domain, row, z: int, dinv_row):

@@ -308,10 +308,11 @@ def epilogue_words(acc, colsum, rowc, tw=None, out_bytes: bool = True):
         out = torch.empty((32, t, g), dtype=torch.int8, device=acc.device)
     else:
         out = torch.empty((8, t, g), dtype=torch.int32, device=acc.device)
-    code = kernels.lib().zg_ntt_epilogue(
-        acc.data_ptr(), colsum.data_ptr(), rowc.data_ptr(),
-        None if tw is None else tw.data_ptr(), out.data_ptr(), t, g,
-        int(bool(out_bytes)), kernels.current_stream(acc.device))
+    with kernels.on_device(acc) as stream:
+        code = kernels.lib().zg_ntt_epilogue(
+            acc.data_ptr(), colsum.data_ptr(), rowc.data_ptr(),
+            None if tw is None else tw.data_ptr(), out.data_ptr(), t, g,
+            int(bool(out_bytes)), stream)
     kernels.launched("ntt_epilogue", code)
     return out
 
@@ -354,9 +355,10 @@ def twiddle_words(xb, twc):
     kernels.check_planes("ntt_twiddle twc", twc, (8, s, r))
     out = torch.empty((32, r, s * g), dtype=torch.int8, device=xb.device)
     colsum = torch.empty(s * g, dtype=torch.int32, device=xb.device)
-    code = kernels.lib().zg_ntt_twiddle(
-        xb.data_ptr(), twc.data_ptr(), out.data_ptr(), colsum.data_ptr(), s, r,
-        g, kernels.current_stream(xb.device))
+    with kernels.on_device(xb) as stream:
+        code = kernels.lib().zg_ntt_twiddle(
+            xb.data_ptr(), twc.data_ptr(), out.data_ptr(), colsum.data_ptr(), s,
+            r, g, stream)
     kernels.launched("ntt_twiddle", code)
     return out, colsum
 
