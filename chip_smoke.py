@@ -94,6 +94,32 @@ interleaved rows, twice, and the rounds of its join), beside
 ``trivial``, which computes the same function. Their rows in the ``kernels`` line count the
 launches of that path (``launches_path``); no proof path runs them.
 
+The run keeps the SRS's merged-window tables in a new temporary directory
+(``curve.srs.CACHE_DIR``), so each table is first built and written: the
+``commit`` phase reads both bases back for a second ``Srs.setup(14)``
+(``tables_cached_s``, equal limb for limb to the tables built), and the
+``cli`` phase's proof from the files read back may build no table. The
+``env`` phase prints the host C compiler and whether CPython's ``Python.h``
+is there (the limb codec needs both: without them the run fails), the
+``build`` phase the seconds of the codec's build. The ``codec`` phase holds
+the C limb codec (``to_limbs`` / ``from_limbs``) against the numpy path
+(``_to_limbs_np`` / ``_from_limbs_np``) limb for limb on 20 x 2^14 and
+20 x 2^17 Fr and 20 x 2^14 Fq values, both directions, with and without
+Montgomery form, with the seconds of both.
+
+The ``large`` phase (``--phases env,build,codec,large`` runs just it)
+proves at MNIST-Large's shape, k = 17 (``make_synthetic_wnn(
+*MNIST_LARGE_SHAPE)``, ``Srs.setup(17, seed=b"bench-srs")``; NTTs at 2^17
+and the extended 2^20, MSM batches of 2): set-up, both tables cold and then
+read from the cache by a second Srs, keygen, two proofs under one seed
+(equal bytes, SHA-256 ``LARGE_PROOF_SHA256``), verify, a tampered proof and
+wrong scores rejected; the proof's first advice commitment against
+[a(tau)]G on the host; the proof's advice transform run again with every
+kernel 6 and 7 call held against its plain version (those launches are not
+counted) and the engine against the butterflies. Its line gives the seconds, the warm proof's marks, the
+launches (the ``large`` column of ``launches_by_path``), the peak device
+memory and the proof's bytes and SHA-256.
+
 Every ``bound_ms`` counts a Montgomery product as the IMAD-pipe issue
 slots that one ``fe_mul`` takes on the card (``bench.IMAD_SLOTS_PER_MUL``).
 The ``build`` phase prints, beside what ptxas reported, each kernel's
@@ -116,21 +142,25 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import random
 import subprocess
 import sys
+import sysconfig
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from zerog_tpu_torch import kernels
+from zerog_tpu_torch import kernels, native
 from zerog_tpu_torch.bench import (IMAD_SLOTS_PER_MUL, bound, flush_scan_affine_bound,
                                    gpu_line, segment_ids, time_ms, wall_ms)
 from zerog_tpu_torch.bench import field_chain, sass, scan_bisect
-from zerog_tpu_torch.field import FR, FQ, to_limbs, from_limbs, to_device
-from zerog_tpu_torch.field import pfield
+from zerog_tpu_torch.field import FR, FQ, batch_inv, to_limbs, from_limbs, to_device
+from zerog_tpu_torch.field import limbs, pfield
 from zerog_tpu_torch.curve import Srs, pscan, pfold, pippenger
+from zerog_tpu_torch.curve import srs as srs_module
 from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
 from zerog_tpu_torch.curve.jpoints import points_from_device, points_to_device
 from zerog_tpu_torch.plonk import ConstraintSystem
@@ -149,6 +179,8 @@ CARRIED_PRODUCTS_MADD = scan_bisect.CARRIED_PRODUCTS["madd"]
 # the warm WNN proof's bytes, unchanged by every kernel change since they
 # were first recorded
 WNN_PROOF_SHA256 = "99df386d0fd592c34ceb405e502e089e204ff6d89ca83dd6f1f9c22b117d9c66"
+# the large phase's warm proof at k = 17, as first recorded
+LARGE_PROOF_SHA256 = "d6a1d8064c1bcc31a62e663ace7ce21286ac30a45f9f1c272399d8434dc869e5"
 
 KERNEL_META = {
     "field_binop": ("zerog_tpu_torch/csrc/field_binop.cu",
@@ -189,6 +221,8 @@ IMAD_SLOTS_PER_REDC = 136
 # the WNN model of the smoke run: MNIST-Tiny's shape, registered at k = 14
 # (28-bit filter inputs, 256-entry bloom arrays, 1 hash, 1 bit per input)
 TINY_SHAPE = (28, 256, 1, 1)
+# the large phase: MNIST-Large's shape (models/synthetic.py), whose least k is 17
+LARGE_K = 17
 
 
 def emit(obj):
@@ -208,10 +242,23 @@ def phase_env():
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                             "--format=csv,noheader"], capture_output=True, text=True,
                            check=True).stdout.strip().splitlines()[0]
+    # the host C compiler and CPython's header, which the limb codec needs
+    try:
+        cc = subprocess.run([native.CC, "--version"], capture_output=True,
+                            text=True).stdout.splitlines()[0]
+    except (FileNotFoundError, IndexError):
+        cc = None
+    include = sysconfig.get_paths()["include"]
+    python_h = os.path.exists(os.path.join(include, "Python.h"))
     info = dict(phase="env", gpu=gpu_line(), clocks_max_sm=clock,
                 torch=torch.__version__, cuda=torch.version.cuda,
-                nvcc=release[0].strip() if release else nvcc.strip())
+                nvcc=release[0].strip() if release else nvcc.strip(),
+                host_cc=cc or f"{native.CC}: not found", python_include=include,
+                python_h=python_h)
     emit(info)
+    if cc is None or not python_h:
+        raise RuntimeError("the limb codec needs the host C compiler and "
+                           f"{include}/Python.h")
     return info
 
 
@@ -225,9 +272,72 @@ def phase_build():
     t0 = time.time()
     path = kernels.build(force=True)
     kernels.lib()
-    emit(dict(phase="build", seconds=round(time.time() - t0, 3),
+    seconds = time.time() - t0
+    # the limb codec, with the host C compiler (built once a checkout)
+    prebuilt = native.library_path().exists()
+    t0 = time.time()
+    native.limbcodec()
+    emit(dict(phase="build", seconds=round(seconds, 3),
               ptxas=kernels.BUILD_INFO.get("ptxas", {}), res_usage=sass.res_usage(path),
-              imad_slots_per_mul=sass.slots_per_mul(path)))
+              imad_slots_per_mul=sass.slots_per_mul(path),
+              codec=dict(seconds=round(time.time() - t0, 3),
+                         library=native.library_path().name, prebuilt=prebuilt)))
+
+
+# ---- phase 2b: codec — the host limb codec against its numpy path ------------------
+
+# (field, shape) of the codec's inputs: 20 columns at k = 14 and at k = 17
+CODEC_CASES = ((FR, (20, 1 << K)), (FR, (20, 1 << LARGE_K)), (FQ, (20, 1 << K)))
+
+
+def _rand_field(rng, params, shape):
+    """Field elements as an object array of Python ints: 32 random bytes an
+    element from `rng`, reduced mod p."""
+    count = int(np.prod(shape))
+    raw = rng.bytes(32 * count)
+    out = np.empty(count, dtype=object)
+    out[:] = [int.from_bytes(raw[i:i + 32], "little") % params.p
+              for i in range(0, 32 * count, 32)]
+    return out.reshape(shape)
+
+
+def _host_s(fn):
+    """(fn(), its seconds on the host's clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_codec():
+    """``to_limbs`` / ``from_limbs`` (the C codec) against their numpy
+    paths (``_to_limbs_np`` / ``_from_limbs_np``) limb for limb, both
+    directions, with and without Montgomery form, on 20 x 2^14 and
+    20 x 2^17 Fr and 20 x 2^14 Fq values from default_rng(SEED); the
+    seconds of both."""
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for params, shape in CODEC_CASES:
+        vals = _rand_field(rng, params, shape)
+        for mont in (False, True):
+            got, to_s = _host_s(lambda: to_limbs(vals, params, mont))
+            ref, to_np_s = _host_s(lambda: limbs._to_limbs_np(vals, params, mont))
+            if got.dtype != ref.dtype or not np.array_equal(got, ref):
+                raise AssertionError(f"codec to_limbs {params.name} {shape} "
+                                     f"mont={mont} != numpy path")
+            back, from_s = _host_s(lambda: from_limbs(got, params, mont))
+            back_np, from_np_s = _host_s(
+                lambda: limbs._from_limbs_np(got, params, mont))
+            if not ((back == back_np).all() and (back == vals).all()):
+                raise AssertionError(f"codec from_limbs {params.name} {shape} "
+                                     f"mont={mont} != numpy path")
+            cases.append(dict(field=params.name, shape=list(shape), mont=mont,
+                              to_limbs_s=round(to_s, 4),
+                              to_limbs_np_s=round(to_np_s, 4),
+                              from_limbs_s=round(from_s, 4),
+                              from_limbs_np_s=round(from_np_s, 4)))
+            del got, ref, back, back_np
+    emit(dict(phase="codec", equal_to_numpy_path=True, tolerance=0,
+              library=native.library_path().name, cases=cases))
 
 
 # ---- phase 3: kernels against their plain versions ---------------------------------
@@ -979,16 +1089,66 @@ def phase_ntt(batch):
 
 # ---- phase 5: commit -------------------------------------------------------------
 
+BASES = ("monomial", "lagrange")
+
+
+class _NoTableBuild:
+    """While active, building a window table raises: every table must come
+    from the on-disk cache."""
+
+    def __enter__(self):
+        self._saved = srs_module.build_window_table
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a window table was built, not read from the cache")
+
+        srs_module.build_window_table = refuse
+        return self
+
+    def __exit__(self, *exc):
+        srs_module.build_window_table = self._saved
+
+
+def _cached_tables(srs, again):
+    """Seconds for `again`, an Srs on `srs`'s points, to read both bases'
+    tables from the cache (building one raises); the tables are held against
+    those `srs` built, limb for limb."""
+    with _NoTableBuild():
+        t0 = time.time()
+        for basis in BASES:
+            again.window_table(basis)
+        sync()
+    secs = time.time() - t0
+    for basis in BASES:
+        a, b = srs.window_table(basis), again.window_table(basis)
+        if not (_eq(a.tx, b.tx) and _eq(a.ty, b.ty) and _eq(a.tvalid, b.tvalid)):
+            raise AssertionError(f"k = {srs.k} {basis} table from the cache "
+                                 "!= the table built")
+    return secs
+
+
 def phase_commit():
     t0 = time.time()
     srs = Srs.setup(K, seed=b"bench-srs")
     sync()
     t_setup = time.time() - t0
+    # a miss (the cache directory is new): built and written to the cache
     t0 = time.time()
-    srs.window_table("monomial")
-    srs.window_table("lagrange")
+    for basis in BASES:
+        srs.window_table(basis)
     sync()
     t_tables = time.time() - t0
+    # a second Srs.setup reads both from the files
+    t0 = time.time()
+    again = Srs.setup(K, seed=b"bench-srs")
+    sync()
+    t_setup2 = time.time() - t0
+    if (again.g, again.g_lagrange) != (srs.g, srs.g_lagrange):
+        raise AssertionError("two Srs.setup calls of one seed differ")
+    t_cached = _cached_tables(srs, again)
+    del again
+    cache_bytes = {f: os.path.getsize(os.path.join(srs_module.CACHE_DIR, f))
+                   for f in sorted(os.listdir(srs_module.CACHE_DIR))}
     n = srs.n
     tau = int.from_bytes(hashlib.blake2b(b"bench-srs", digest_size=32).digest(),
                          "little") % FR.p
@@ -1039,7 +1199,9 @@ def phase_commit():
     sync()
     t_inv = time.time() - t0
     emit(dict(phase="commit", k=K, setup_s=round(t_setup, 3),
-              tables_s=round(t_tables, 3), msm_batch8_s=round(t_batch, 3),
+              tables_s=round(t_tables, 3), setup_second_s=round(t_setup2, 3),
+              tables_cached_s=round(t_cached, 3), tables_cached_equal=True,
+              cache_file_bytes=cache_bytes, msm_batch8_s=round(t_batch, 3),
               msm_lagrange_ones_s=round(t_lag, 3), launches=launches,
               msm_breakdown=dict(prep_s=round(t_prep, 4),
                                  pipeline_s=round(t_pipe, 4),
@@ -1476,8 +1638,10 @@ def phase_cli(srs, pk):
         if not (pk2.vk.transcript_repr == vk2.transcript_repr
                 == pk.vk.transcript_repr):
             raise AssertionError("the key read back has another transcript_repr")
-        proof, outputs = timed("prove_from_files", wnn.proof, pk2, srs2, image,
-                               rng_seed=b"chip-smoke-wnn")
+        # the SRS read back finds its window tables on disk
+        with _NoTableBuild():
+            proof, outputs = timed("prove_from_files", wnn.proof, pk2, srs2, image,
+                                   rng_seed=b"chip-smoke-wnn")
         sha = hashlib.sha256(proof).hexdigest()
         if sha != WNN_PROOF_SHA256:
             raise AssertionError(f"proof from the files: SHA-256 {sha} != "
@@ -1544,7 +1708,7 @@ def phase_cli(srs, pk):
     total = round(time.time() - t_phase, 3)
     emit(dict(phase="cli", k=K, model="make_synthetic_wnn(28, 256, 1, 1, seed=0)",
               seconds=secs, total_s=total, file_bytes=sizes,
-              proof_sha256=sha, proof_bytes=len(proof),
+              proof_sha256=sha, proof_bytes=len(proof), tables_from_cache=True,
               transcript_repr_equal=True, srs_cli_equals_setup=True,
               verified_cli=True, evm_code_bytes=len(code), evm_gas=gas,
               evm_tampered_rejected=True, evm_wrong_scores_rejected=True,
@@ -1660,12 +1824,214 @@ def phase_mesh(srs, pk, single_warm_s):
     return launches
 
 
+# ---- phase: large — the WNN proof at MNIST-Large's shape, k = 17 ---------------------
+
+class _AdviceRecorder:
+    """Records the first ``commit_lagrange`` call on `srs` while active: the
+    prover's advice columns (blinding rows included) and their points."""
+
+    def __init__(self, srs):
+        self.srs = srs
+
+    def __enter__(self):
+        self.rows = self.points = None
+        commit = self.srs.commit_lagrange
+
+        def rec(values):
+            out = commit(values)
+            if self.rows is None:
+                self.rows, self.points = values, out
+            return out
+
+        self.srs.commit_lagrange = rec
+        return self
+
+    def __exit__(self, *exc):
+        del self.srs.commit_lagrange
+
+
+def _lagrange_at(values, k, tau):
+    """sum_i values_i L_i(tau) over the domain of size 2^k, with L_i(tau) =
+    w^i / n (tau^n - 1) / (tau - w^i): the scalar of a Lagrange-form
+    commitment, in Python ints."""
+    p, n = FR.p, 1 << k
+    omega = FR.nth_root_of_unity(k)
+    wpows = [1] * n
+    for i in range(1, n):
+        wpows[i] = wpows[i - 1] * omega % p
+    dinv = batch_inv([(tau - w) % p for w in wpows], p)
+    acc = sum(int(v) % p * w % p * d for v, w, d in zip(values, wpows, dinv)) % p
+    return acc * ((pow(tau, n, p) - 1) % p) % p * FR.inv(n) % p
+
+
+def _check_levels(rec, n):
+    """Every kernel call `rec` recorded in a transform of size `n`, held
+    against its plain version limb for limb and timed; returns one dict a
+    call."""
+    if not rec.epilogues:
+        raise AssertionError(f"the n = {n} transform launched no ntt_epilogue")
+    out = []
+    for (acc, colsum, rowc, tw, out_bytes), got in rec.epilogues:
+        ref = pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes)
+        if not _eq(got, ref):
+            raise AssertionError(f"ntt_epilogue {tuple(acc.shape)} != plain")
+        t, lanes = acc.shape[1], acc.shape[2]
+        ms = time_ms(lambda: pntt.epilogue_words(acc, colsum, rowc, tw, out_bytes),
+                     reps=3)
+        b_ms, b_by = _epilogue_bound(t, lanes, tw is not None)
+        out.append(dict(kernel="ntt_epilogue", n=n, t=t, lanes=lanes,
+                        out="bytes" if out_bytes else "words", ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=0))
+        del ref
+    for (xb, twc), (got, colsum) in rec.twiddles:
+        ref, ref_sum = pntt.twiddle_plain(xb, twc)
+        if not (_eq(got, ref) and _eq(colsum, ref_sum)):
+            raise AssertionError(f"ntt_twiddle {tuple(xb.shape)} != plain")
+        s, lanes, r = xb.shape[1], xb.shape[2], twc.shape[2]
+        ms = time_ms(lambda: pntt.twiddle_words(xb, twc), reps=3)
+        elems = s * lanes
+        b_ms, b_by = bound(elems * 64 + 32 * s * r + 4 * s * (lanes // r),
+                           elems * IMAD_SLOTS_PER_MUL)
+        out.append(dict(kernel="ntt_twiddle", n=n, s=s, r=r, g=lanes // r, ms=ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=0))
+        del ref, ref_sum
+    return out
+
+
+def phase_large():
+    """The WNN proof of inference at MNIST-Large's shape, k = 17, at full
+    width: ``make_synthetic_wnn(*MNIST_LARGE_SHAPE)``, ``Srs.setup(17,
+    seed=b"bench-srs")`` and its window tables (built, then read from the
+    cache by a second Srs), keygen, two proofs under one seed (equal bytes,
+    their SHA-256 asserted), verify, a tampered proof and wrong scores
+    rejected. The proof's first
+    advice commitment is held against [a(tau)]G on the host. The proof's
+    advice transform (2^17 inverse, 2^20 coset-extended) is run again
+    with every kernel 6 and 7 call held against its plain version and the
+    engine against the butterflies; those launches are not counted. The
+    launches of keygen, the two proofs and verify are the ``large`` column
+    of ``launches_by_path``."""
+    from zerog_tpu_torch.models import MNIST_LARGE_SHAPE, make_synthetic_wnn
+
+    t_phase = time.time()
+    secs = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.time()
+        out = fn(*args, **kw)
+        sync()
+        secs[name] = round(time.time() - t0, 3)
+        return out
+
+    wnn = make_synthetic_wnn(*MNIST_LARGE_SHAPE)
+    image = np.random.default_rng(SEED + 17).integers(0, 256, (28, 28)).astype(np.uint8)
+    scores = [int(v) for v in wnn.predict(image)]
+    torch.cuda.reset_peak_memory_stats(DEV)
+    srs = timed("setup", Srs.setup, LARGE_K, seed=b"bench-srs")
+    timed("tables", lambda: [srs.window_table(b) for b in BASES])
+    secs["tables_cached"] = round(_cached_tables(
+        srs, Srs(srs.k, srs.g, srs.g_lagrange, srs.g2, srs.s_g2)), 3)
+
+    kernels.reset_launch_counts()
+    pk = timed("keygen", wnn.generate_proving_key, srs)
+    with _AdviceRecorder(srs) as adv:
+        proof1, out1 = timed("prove_first", wnn.proof, pk, srs, image,
+                             rng_seed=b"chip-smoke-large")
+    before_checks = kernels.launch_counts()
+
+    # the first advice commitment against the tau ground truth
+    tau = int.from_bytes(hashlib.blake2b(b"bench-srs", digest_size=32).digest(),
+                         "little") % FR.p
+    t0 = time.time()
+    want = g1_mul(G1_GEN, _lagrange_at(adv.rows[0], LARGE_K, tau))
+    if adv.points[0] != want:
+        raise AssertionError("advice commitment != [a(tau)]G")
+    if proof1[:64] != want[0].to_bytes(32, "big") + want[1].to_bytes(32, "big"):
+        raise AssertionError("the proof's first point is not the advice commitment")
+    secs["tau_check"] = round(time.time() - t0, 3)
+
+    # the proof's advice transform again: kernels 6 and 7 at its 2^17 and
+    # 2^20 levels against their plain versions, engine against butterflies
+    dom = get_domain(LARGE_K, pk.vk.cs.degree(), DEV)
+    lag = to_device(to_limbs(np.asarray(adv.rows, dtype=object) % FR.p, FR, mont=True),
+                    DEV)
+    del adv
+    with _LevelRecorder() as rec:
+        coeff = dom.lagrange_to_coeff(lag)
+        sync()
+    levels = _check_levels(rec, dom.n)
+    with _LevelRecorder() as rec:
+        ext = dom.coeff_to_extended(coeff)
+        sync()
+    levels += _check_levels(rec, dom.extended_n)
+    del rec
+    saved = NttPlan.MXU_MIN_LOG_N
+    NttPlan.MXU_MIN_LOG_N = 64
+    try:
+        if not (_eq(coeff, dom.lagrange_to_coeff(lag))
+                and _eq(ext, dom.coeff_to_extended(coeff))):
+            raise AssertionError("k = 17 advice transforms: engine != butterflies")
+    finally:
+        NttPlan.MXU_MIN_LOG_N = saved
+    ext_shape = list(ext.shape)
+    del lag, coeff, ext
+    after_checks = kernels.launch_counts()
+    check_launches = {k: after_checks[k] - before_checks[k] for k in after_checks}
+    peak_first = torch.cuda.max_memory_allocated(DEV)
+
+    torch.cuda.reset_peak_memory_stats(DEV)
+    timings = {}
+    proof2, out2 = timed("prove_second", wnn.proof, pk, srs, image,
+                         rng_seed=b"chip-smoke-large", timings=timings)
+    peak_warm = torch.cuda.max_memory_allocated(DEV)
+    ok = timed("verify", wnn.verify_proof, proof2, srs, pk.vk, out2)
+    launches = {k: c - check_launches.get(k, 0)
+                for k, c in kernels.launch_counts().items()}
+
+    if out1 != scores or out2 != scores:
+        raise AssertionError("the k = 17 proof's public scores != predict")
+    if proof1 != proof2:
+        raise AssertionError("equal seeds gave different k = 17 proof bytes")
+    sha = hashlib.sha256(proof2).hexdigest()
+    if sha != LARGE_PROOF_SHA256:
+        raise AssertionError(f"k = 17 proof SHA-256 {sha} != {LARGE_PROOF_SHA256}")
+    if not ok:
+        raise AssertionError("the k = 17 WNN proof did not verify")
+    bad = bytearray(proof2)
+    bad[len(bad) // 2] ^= 1
+    if not _rejected(wnn.verify_proof, bytes(bad), srs, pk.vk, out2):
+        raise AssertionError("tampered k = 17 proof accepted")
+    wrong = list(scores)
+    wrong[0] += 1
+    if not _rejected(wnn.verify_proof, proof2, srs, pk.vk, wrong):
+        raise AssertionError("wrong scores accepted at k = 17")
+    # kernel 3 runs only where a column's bucket run outgrows the scan rows
+    for name in ("flush_scan_affine", "sum_rows", "weighted_fold") + NTT_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 "large path")
+    emit(dict(phase="large", k=LARGE_K,
+              model="make_synthetic_wnn(49, 8192, 4, 6, seed=0)", l=wnn.l, p=wnn.p,
+              scores=scores, seconds=secs, total_s=round(time.time() - t_phase, 3),
+              timings={k: round(v, 4) for k, v in timings.items()},
+              proof_bytes=len(proof2), proof_sha256=sha,
+              launches=launches, check_launches=check_launches,
+              max_memory_allocated_gib=dict(
+                  through_first_proof_and_checks=round(peak_first / 2**30, 3),
+                  warm_proof=round(peak_warm / 2**30, 3)),
+              advice_commitment_equals_tau_truth=True, extended=ext_shape,
+              ntt_levels=levels, engine_equals_butterflies=True, verified=True,
+              tamper_rejected=True, wrong_scores_rejected=True,
+              deterministic=True, tables_cached_equal=True))
+    return launches
+
+
 # ---- main --------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases",
-                    default="env,build,kernels,bench,ntt,commit,prove,wnn,cli,mesh")
+    ap.add_argument("--phases", default="env,build,codec,kernels,bench,ntt,commit,"
+                                        "prove,wnn,cli,mesh,large")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if ("cli" in phases or "mesh" in phases) and "wnn" not in phases:
@@ -1673,12 +2039,20 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(1)
-    t_start = time.time()
     torch.cuda.set_device(DEV)
+    # a new window-table cache for this run: every table is first a miss
+    with tempfile.TemporaryDirectory(prefix="zg_wtables_") as cache:
+        srs_module.CACHE_DIR = cache
+        run(phases)
 
+
+def run(phases):
+    t_start = time.time()
     phase_env()
     if "build" in phases:
         phase_build()
+    if "codec" in phases:
+        phase_codec()
     kres = phase_kernels() if "kernels" in phases else {}
     by_path = {}
     if "bench" in phases:
@@ -1702,7 +2076,10 @@ def main():
             if "mesh" in phases:
                 by_path["mesh"] = phase_mesh(srs, wnn_pk, warm_s)
             del wnn_pk
-    main_path = by_path.get("wnn", by_path.get("prove", {}))
+        del srs
+    if "large" in phases:
+        by_path["large"] = phase_large()
+    main_path = by_path.get("wnn", by_path.get("prove", by_path.get("large", {})))
 
     rows = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -28,7 +28,7 @@ PORT_MODULES = [
     "zerog_tpu_torch.gadgets.bloom_filter", "zerog_tpu_torch.gadgets.wnn_circuit",
     "zerog_tpu_torch.models", "zerog_tpu_torch.models.wnn",
     "zerog_tpu_torch.models.synthetic",
-    "zerog_tpu_torch.convert", "zerog_tpu_torch.kernels",
+    "zerog_tpu_torch.convert", "zerog_tpu_torch.kernels", "zerog_tpu_torch.native",
     "zerog_tpu_torch.bench", "zerog_tpu_torch.bench.field_chain",
     "zerog_tpu_torch.bench.scan_bisect", "zerog_tpu_torch.bench.ab",
     "zerog_tpu_torch.parallel", "zerog_tpu_torch.parallel.mesh",

@@ -12,13 +12,15 @@ window tables) live on the device the SRS was made for.
 from __future__ import annotations
 
 import hashlib
+import os
 import struct
+import tempfile
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..field import FR, batch_inv, jfr
+from ..field import FR, batch_inv, jfr, to_numpy
 from .bn254 import (
     G1_GEN, G2_GEN, g2_mul, g1_to_bytes, g1_from_bytes, g2_to_bytes, g2_from_bytes,
 )
@@ -27,9 +29,43 @@ from .pippenger import (
     default_window, msm_fixed_host, msm_pippenger_host)
 from .jpoints import points_to_device
 
-__all__ = ["Srs"]
+__all__ = ["Srs", "CACHE_DIR"]
 
 _MAGIC = b"ZGTPUSRS"
+
+# where merged-window tables are kept between processes (expanded when a
+# table is looked up, so a caller may point it elsewhere)
+CACHE_DIR = "~/.cache/zerog_tpu_torch"
+
+
+def _table_key(k: int, c: int, points) -> str:
+    """The JAX package's cache key of a point set's window table: blake2b
+    of ``wtable:{k}:{c}:`` and x, y (32 bytes LE) of points 0, 1, -1 and
+    n/2, skipping the point at infinity."""
+    h = hashlib.blake2b(f"wtable:{k}:{c}:".encode(), digest_size=16)
+    for pt in (points[0], points[1], points[-1], points[len(points) // 2]):
+        if pt is not None:
+            h.update(pt[0].to_bytes(32, "little"))
+            h.update(pt[1].to_bytes(32, "little"))
+    return h.hexdigest()
+
+
+def _write_table(path: str, table) -> None:
+    """Write `table` to `path` through a temporary file renamed into place,
+    so a reader never sees half a file and concurrent writers leave one
+    whole one. A write that fails (read-only or full disk) is skipped: the
+    cache only saves time."""
+    tmp = None
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".npz.tmp")
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, tx=to_numpy(table.tx), ty=to_numpy(table.ty),
+                     tv=table.tvalid.cpu().numpy().astype(bool))
+        os.replace(tmp, path)
+    except OSError:
+        if tmp is not None and os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 class Srs:
@@ -109,13 +145,34 @@ class Srs:
         """Cached merged-window table (see pippenger.build_window_table) for
         one of the two fixed SRS point sets; None below `min_n`
         (FIXED_MIN_N unless given: the mesh path takes a table at any
-        size)."""
+        size).
+
+        The table is deterministic from the point set, so it is also kept
+        on disk, in :data:`CACHE_DIR`, and a later process reads it instead
+        of running the doubling chain again. The file is the JAX package's:
+        ``wtable_<key>.npz`` with ``tx``, ``ty`` (uint32[W*n, 16]) and
+        ``tv`` (bool[W*n]), keyed by :func:`_table_key`, so a file written
+        by either package loads in the other. A basis takes ~42 MB at
+        k = 14 (c = 13, 20 windows) and ~271 MB at k = 17 (c = 16, 16
+        windows): 129 bytes a point a window. Deleting the directory clears
+        the cache."""
         if self.n < (self.FIXED_MIN_N if min_n is None else min_n):
             return None
         if basis not in self._tables:
+            from ..convert import window_table_from_numpy  # convert imports Srs
+
             c = default_fixed_window(self.n)
-            self._tables[basis] = build_window_table(
-                self._pdev(basis), c, device=self.device)
+            points = self.g_lagrange if basis == "lagrange" else self.g
+            path = os.path.join(os.path.expanduser(CACHE_DIR),
+                                f"wtable_{_table_key(self.k, c, points)}.npz")
+            if os.path.exists(path):
+                with np.load(path) as d:
+                    table = window_table_from_numpy(
+                        c, self.n, d["tx"], d["ty"], d["tv"], device=self.device)
+            else:
+                table = build_window_table(self._pdev(basis), c, device=self.device)
+                _write_table(path, table)
+            self._tables[basis] = table
         return self._tables[basis]
 
     def _pdev(self, basis: str):
