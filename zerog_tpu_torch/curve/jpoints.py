@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field import jfq, to_limbs, from_limbs, to_device, FQ
+from .. import trace
+from ..field import jfq, to_limbs, from_limbs, to_device, to_numpy, FQ
 
 __all__ = [
     "jac_from_affine", "jac_add", "jac_add_incomplete", "jac_madd_incomplete",
@@ -181,6 +182,8 @@ def points_to_device(affine_points, device=None):
         if pt is not None:
             xs[i], ys[i] = pt
             valid[i] = True
+    if trace.enabled():
+        trace.count("h2d_bytes", valid.nbytes)
     return (
         to_device(to_limbs(xs, FQ, mont=True), device),
         to_device(to_limbs(ys, FQ, mont=True), device),
@@ -193,7 +196,7 @@ def points_from_device(jac):
     One stacked download; normalisation runs on the host in Python ints."""
     from .bn254 import jacobian_to_affine_batch
 
-    packed = torch.stack([c.expand(jac[2].shape) for c in jac]).cpu().numpy()
+    packed = to_numpy(torch.stack([c.expand(jac[2].shape) for c in jac]))
     xs, ys, zs = (np.atleast_1d(from_limbs(comp, FQ, mont=True))
                   for comp in packed)
     return jacobian_to_affine_batch(list(xs), list(ys), list(zs))

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..device import resolve_device
 from ..field import FR, FQ, jfq, shift_fill, to_limbs, from_limbs, to_device
 from .jpoints import (
@@ -385,6 +386,8 @@ def _bucket_pipeline(prep, r_rows: int, c: int):
     group as a flat list [2*G], neg_bias, lo_bits). Reads `max_run` back
     from the device to decide on the compaction round."""
     max_run = prep[-1]
+    if trace.enabled():
+        trace.count("d2h_bytes", max_run.nbytes)
     compact = int(max_run) > r_rows
     acc2 = _pipeline_device(prep[:-1], r_rows, c, compact)
     g = int(acc2[0].shape[0])

@@ -19,6 +19,7 @@ import tempfile
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..field import FR, batch_inv, jfr, to_numpy
 from .bn254 import (
@@ -192,6 +193,9 @@ class Srs:
             out.extend(msm(rows[i : i + self.MAX_BATCH], pdev, table=table,
                            device=self.device))
         return out[:b]
+    # each commitment call is the span ``msm`` (zerog_tpu_torch.trace), from
+    # its entry until its points are on the host
+    @trace.spanned("msm")
     def commit_lagrange(self, values):
         """values: [n] ints or [B][n] -> affine point(s). KZG ignores blinds
         (hiding comes from randomized rows, as in halo2)."""
@@ -200,6 +204,7 @@ class Srs:
         out = self._msm_chunked(rows, "lagrange")
         return out[0] if single else out
 
+    @trace.spanned("msm")
     def commit(self, coeffs):
         """Commit coefficient-form poly(s) of length <= n."""
         single = not isinstance(coeffs[0], (list, tuple, np.ndarray))
@@ -236,6 +241,7 @@ class Srs:
             out.extend(res)
         return out[:b]
 
+    @trace.spanned("msm")
     def commit_lagrange_dev(self, stack):
         """stack: mont limb tensor [B, n, 16] (or [n, 16]) of Lagrange
         values -> list of B affine host points."""
@@ -243,6 +249,7 @@ class Srs:
         out = self._msm_dev(stack, "lagrange")
         return out[0] if single else out
 
+    @trace.spanned("msm")
     def commit_dev(self, stack):
         """stack: device mont limbs [B, n, 16] coefficient-form."""
         single = stack.dim() == 2

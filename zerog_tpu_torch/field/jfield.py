@@ -22,7 +22,10 @@ module boundary:
   chain of an adder is exactly the limb carry chain).
 
 All functions are shape-polymorphic over leading batch dimensions and run
-eagerly on whatever device their operands live on.
+eagerly on whatever device their operands live on. Traced
+(:mod:`zerog_tpu_torch.trace`), each call of a public op of :class:`JField`
+adds 1 to the counter ``field_ops``, a call made inside another op too
+(``square`` counts itself and its ``mul``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from .params import FieldParams, FR, FQ, NLIMB, LIMB_BITS, MASK
 
 __all__ = [
@@ -199,20 +203,24 @@ class JField:
 
     # -- ring ops ----------------------------------------------------------
     def add(self, a, b):
+        trace.count("field_ops")
         s, _ = _normalize(a + b, NLIMB, 0)  # a + b < 2p < 2^255: no carry out
         return self._cond_sub_p(s)
 
     def sub(self, a, b):
+        trace.count("field_ops")
         # a - b = a + p + (2^256 - b) mod 2^256; all columns non-negative.
         cols = a + self._c("p1_limbs", a.device) + (b ^ MASK)
         d, _ = _normalize(cols, NLIMB, 1)  # drop the 2^256 carry
         return self._cond_sub_p(d)
 
     def neg(self, a):
+        trace.count("field_ops")
         return self.sub(torch.zeros_like(a), a)
 
     def mul(self, a, b):
         """Montgomery product: (a * b * R^{-1}) mod p."""
+        trace.count("field_ops")
         dev = a.device
         t = _conv(a, b)                                        # < 2^36
         # m = T_lo * n' mod 2^256 straight from the raw low columns (their
@@ -233,29 +241,36 @@ class JField:
         return self._cond_sub_p(limbs[..., NLIMB:])
 
     def square(self, a):
+        trace.count("field_ops")
         return self.mul(a, a)
 
     def to_mont(self, a):
+        trace.count("field_ops")
         return self.mul(a, self._c("r2_limbs", a.device))
 
     def from_mont(self, a):
+        trace.count("field_ops")
         one = torch.zeros(NLIMB, dtype=torch.int64, device=a.device)
         one[0] = 1
         return self.mul(a, one)
 
     def select(self, cond_bool, a, b):
         """cond_bool: bool[...] -> limbwise select."""
+        trace.count("field_ops")
         return torch.where(cond_bool.unsqueeze(-1), a, b)
 
     def is_zero(self, a):
+        trace.count("field_ops")
         return (a == 0).all(dim=-1)
 
     def eq(self, a, b):
+        trace.count("field_ops")
         return (a == b).all(dim=-1)
 
     def pow_const(self, a, e: int):
         """a^e for a small *static* exponent, via square-and-multiply. Use
         only for tiny exponents (e.g. 3, 5)."""
+        trace.count("field_ops")
         assert e >= 0
         result = self._c("one_mont", a.device).expand(a.shape)
         base = a
@@ -270,6 +285,7 @@ class JField:
     # -- reductions --------------------------------------------------------
     def sum(self, a, axis: int = 0):
         """Modular sum along an axis via pairwise (log-depth) reduction."""
+        trace.count("field_ops")
         a = torch.movedim(a, axis, 0)
         n = a.shape[0]
         while n > 1:

@@ -9,6 +9,12 @@ whose plain versions are ``_to_limbs_np`` and ``_from_limbs_np`` here. The
 numpy side is ``uint32[..., 16]``; :func:`to_device` and :func:`to_numpy`
 move it to and from the tensor dtype of the port (int64 lanes: PyTorch has
 no add, shift or compare for uint32 on the CPU).
+
+Traced (:mod:`zerog_tpu_torch.trace`): the spans ``codec.encode``
+(:func:`to_limbs`) and ``codec.decode`` (:func:`from_limbs`), and the
+counters ``h2d_bytes`` (what :func:`to_device` hands to the device) and
+``d2h_bytes`` (what :func:`to_numpy` takes off a tensor), counted on the CPU
+too, where the same steps copy within the host.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from .params import FieldParams, NLIMB, LIMB_BITS, MASK
 
 __all__ = ["to_limbs", "from_limbs", "ints_to_mont_limbs", "mont_limbs_to_ints",
@@ -39,6 +46,7 @@ def _mont_ctx(p: int):
     return (p.to_bytes(32, "little"), inv, r2.to_bytes(32, "little"))
 
 
+@trace.spanned("codec.encode")
 def to_limbs(values, params: FieldParams | None = None, mont: bool = False) -> np.ndarray:
     """Convert int / list of ints / object ndarray -> uint32[..., 16].
 
@@ -90,6 +98,7 @@ def _to_limbs_np(values, params: FieldParams | None = None,
     return out
 
 
+@trace.spanned("codec.decode")
 def from_limbs(limbs, params: FieldParams | None = None, mont: bool = False):
     """Convert [..., 16] limbs (numpy or tensor) -> object ndarray of Python
     ints (or a scalar int for a single element). If ``mont``, converts out of
@@ -140,14 +149,25 @@ def mont_limbs_to_ints(limbs, params: FieldParams):
 
 
 def to_device(limbs, device) -> torch.Tensor:
-    """uint32 numpy limbs (or a tensor) -> int64 tensor on `device`."""
+    """uint32 numpy limbs or indices (or a tensor) -> int64 tensor on
+    `device`; a host array's int64 bytes, and a tensor's where it changes
+    device, count as ``h2d_bytes``."""
     if isinstance(limbs, torch.Tensor):
-        return limbs.to(device=device, dtype=torch.int64)
-    return torch.from_numpy(np.asarray(limbs).astype(np.int64)).to(device)
+        out = limbs.to(device=device, dtype=torch.int64)
+        if trace.enabled() and out.device != limbs.device:
+            trace.count("h2d_bytes", out.nbytes)
+        return out
+    arr = np.asarray(limbs).astype(np.int64)
+    if trace.enabled():
+        trace.count("h2d_bytes", arr.nbytes)
+    return torch.from_numpy(arr).to(device)
 
 
 def to_numpy(limbs) -> np.ndarray:
-    """Tensor (any device) or array of limbs -> uint32 numpy array."""
+    """Tensor (any device) or array of limbs -> uint32 numpy array; a
+    tensor's bytes count as ``d2h_bytes``."""
     if isinstance(limbs, torch.Tensor):
+        if trace.enabled():
+            trace.count("d2h_bytes", limbs.nbytes)
         return limbs.detach().cpu().numpy().astype(np.uint32)
     return np.asarray(limbs)

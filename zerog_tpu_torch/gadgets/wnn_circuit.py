@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import trace
 from ..plonk.assignment import Assignment
 from ..plonk.cs import ConstraintSystem
 from .bits2num import Bits2NumChip
@@ -98,54 +99,60 @@ class WnnCircuit:
         )
 
     def synthesize(self, config, asn: Assignment):
-        params = self.params
-        c, n_inputs, e = self.bloom_filter_arrays.shape
-        flat = self.bloom_filter_arrays.reshape(c * n_inputs, e)
+        with trace.span("frontend.synthesize"):
+            params = self.params
+            c, n_inputs, e = self.bloom_filter_arrays.shape
+            flat = self.bloom_filter_arrays.reshape(c * n_inputs, e)
 
-        bloom_chip = BloomFilterChip(config["bloom"], flat)
-        bloom_chip.load(asn)
+            bloom_chip = BloomFilterChip(config["bloom"], flat)
+            with trace.span("frontend.bloom_load"):
+                bloom_chip.load(asn)
 
-        encode_chip = EncodeImageChip(config["encode"], self.binarization_thresholds)
-        bit_cells = encode_chip.encode_image(asn, self.image)
+            encode_chip = EncodeImageChip(config["encode"], self.binarization_thresholds)
+            with trace.span("frontend.encode_image"):
+                bit_cells = encode_chip.encode_image(asn, self.image)
 
-        # recompute bit values for witness bookkeeping
-        img = np.asarray(self.image, dtype=np.uint16)
-        thr = self.binarization_thresholds
-        bits = (img[None, :, :] >= thr.transpose(2, 0, 1)).reshape(-1).astype(int)
+            # recompute bit values for witness bookkeeping
+            img = np.asarray(self.image, dtype=np.uint16)
+            thr = self.binarization_thresholds
+            bits = (img[None, :, :] >= thr.transpose(2, 0, 1)).reshape(-1).astype(int)
 
-        perm = self.input_permutation.astype(np.int64)
-        permuted_cells = [bit_cells[i] for i in perm]
-        permuted_bits = bits[perm]
+            perm = self.input_permutation.astype(np.int64)
+            permuted_cells = [bit_cells[i] for i in perm]
+            permuted_bits = bits[perm]
 
-        b2n_chip = Bits2NumChip(config["b2n"])
-        hash_chip = HashChip(config["hash"])
-        nfi = params.bits_per_filter
+            b2n_chip = Bits2NumChip(config["b2n"])
+            hash_chip = HashChip(config["hash"])
+            nfi = params.bits_per_filter
 
-        hash_cells = []
-        hash_values = []
-        for i in range(n_inputs):
-            chunk_cells = permuted_cells[i * nfi : (i + 1) * nfi]
-            chunk_bits = permuted_bits[i * nfi : (i + 1) * nfi]
-            num_cell, num_val = b2n_chip.convert_le(asn, chunk_cells, chunk_bits)
-            h_cell, h_val = hash_chip.hash(asn, num_cell, num_val)
-            hash_cells.append(h_cell)
-            hash_values.append(h_val)
-
-        acc_chip = ResponseAccumulatorChip(config["acc"])
-        score_cells = []
-        for cls in range(params.n_classes):
-            resp_cells = []
-            resp_vals = []
+            hash_cells = []
+            hash_values = []
             for i in range(n_inputs):
-                array_index = cls * n_inputs + i
-                bit_cell, bit_val = bloom_chip.bloom_lookup(
-                    asn, hash_cells[i], hash_values[i], array_index
-                )
-                resp_cells.append(bit_cell)
-                resp_vals.append(bit_val)
-            s_cell, s_val = acc_chip.accumulate(asn, resp_cells, resp_vals)
-            score_cells.append((s_cell, s_val))
+                with trace.span("frontend.hash"):
+                    chunk_cells = permuted_cells[i * nfi : (i + 1) * nfi]
+                    chunk_bits = permuted_bits[i * nfi : (i + 1) * nfi]
+                    num_cell, num_val = b2n_chip.convert_le(asn, chunk_cells, chunk_bits)
+                    h_cell, h_val = hash_chip.hash(asn, num_cell, num_val)
+                hash_cells.append(h_cell)
+                hash_values.append(h_val)
 
-        for i, (cell, _) in enumerate(score_cells):
-            asn.constrain_instance(cell, config["instance"], i)
-        return [v for _, v in score_cells]
+            acc_chip = ResponseAccumulatorChip(config["acc"])
+            score_cells = []
+            for cls in range(params.n_classes):
+                resp_cells = []
+                resp_vals = []
+                for i in range(n_inputs):
+                    array_index = cls * n_inputs + i
+                    with trace.span("frontend.bloom_lookup"):
+                        bit_cell, bit_val = bloom_chip.bloom_lookup(
+                            asn, hash_cells[i], hash_values[i], array_index
+                        )
+                    resp_cells.append(bit_cell)
+                    resp_vals.append(bit_val)
+                with trace.span("frontend.accumulate"):
+                    s_cell, s_val = acc_chip.accumulate(asn, resp_cells, resp_vals)
+                score_cells.append((s_cell, s_val))
+
+            for i, (cell, _) in enumerate(score_cells):
+                asn.constrain_instance(cell, config["instance"], i)
+            return [v for _, v in score_cells]

@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..ops import limbmath as lm
 
@@ -92,13 +93,14 @@ class Wnn:
 
     def predict(self, image: np.ndarray) -> np.ndarray:
         """Per-class scores (the public instance), exact (reference: src/wnn.rs:152-173)."""
-        filter_indices = self.encode_image(image)
-        assert filter_indices.shape[0] == self.num_inputs
-        scores = np.zeros(self.num_classes, dtype=np.int64)
-        for c in range(self.num_classes):
-            for n, idx in enumerate(filter_indices):
-                scores[c] += self.bloom_filter_lookup(self.bloom_filters[c, n], idx)
-        return scores
+        with trace.span("frontend.predict"):
+            filter_indices = self.encode_image(image)
+            assert filter_indices.shape[0] == self.num_inputs
+            scores = np.zeros(self.num_classes, dtype=np.int64)
+            for c in range(self.num_classes):
+                for n, idx in enumerate(filter_indices):
+                    scores[c] += self.bloom_filter_lookup(self.bloom_filters[c, n], idx)
+            return scores
 
     # ---- proving workflow (reference src/wnn.rs:175-280) -----------------
     def get_circuit_params(self):
@@ -150,12 +152,14 @@ class Wnn:
     def proof(self, pk, srs, image: np.ndarray, rng_seed=None, timings=None):
         """Returns (proof_bytes, outputs) (reference src/wnn.rs:232-262).
         `timings`: optional dict filled with per-phase prover wall times.
-        Runs on the SRS's device."""
+        Runs on the SRS's device, inside the root span ``proof``
+        (:mod:`zerog_tpu_torch.trace`)."""
         from ..plonk.prover import create_proof
 
-        outputs = [int(v) for v in self.predict(image)]
-        proof = create_proof(pk, srs, self.get_circuit(image), [outputs],
-                             rng_seed=rng_seed, timings=timings)
+        with trace.proof():
+            outputs = [int(v) for v in self.predict(image)]
+            proof = create_proof(pk, srs, self.get_circuit(image), [outputs],
+                                 rng_seed=rng_seed, timings=timings)
         return proof, outputs
 
     @staticmethod

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch.nn.functional as F
 
+from .. import trace
 from ..curve.pippenger import WindowTable, default_fixed_window
 from ..field import FR, jfr, to_device, to_limbs
 from .mesh import Mesh
@@ -106,13 +107,15 @@ class ShardedSrs:
         arr = np.asarray([[int(v) % FR.p for v in r] for r in rows], dtype=object)
         return to_device(to_limbs(arr), self.device)
 
-    # -- Srs-compatible commitment API ---------------------------------------
+    # -- Srs-compatible commitment API, each call the span ``msm`` ------------
+    @trace.spanned("msm")
     def commit_lagrange(self, values):
         single = not isinstance(values[0], (list, tuple, np.ndarray))
         rows = [values] if single else list(values)
         out = self._msm_sharded(self._rows_to_limbs(rows), "lagrange")
         return out[0] if single else out
 
+    @trace.spanned("msm")
     def commit(self, coeffs):
         single = not isinstance(coeffs[0], (list, tuple, np.ndarray))
         rows = [coeffs] if single else list(coeffs)
@@ -125,11 +128,13 @@ class ShardedSrs:
             stack = stack[None]
         return jfr().from_mont(stack.to(self.device))
 
+    @trace.spanned("msm")
     def commit_lagrange_dev(self, stack):
         single = stack.dim() == 2
         out = self._msm_sharded(self._dev_canonical(stack), "lagrange")
         return out[0] if single else out
 
+    @trace.spanned("msm")
     def commit_dev(self, stack):
         single = stack.dim() == 2
         out = self._msm_sharded(self._dev_canonical(stack), "monomial")

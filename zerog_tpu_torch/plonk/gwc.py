@@ -105,6 +105,7 @@ def multiopen_prove_device(queries, lag_stack, x: int, domain, srs, transcript):
     """
     import torch
 
+    from ..field import to_device
     from ..poly.eval import domain_inverses, kate_quotient_lagrange
 
     v = transcript.squeeze_challenge()
@@ -115,8 +116,8 @@ def multiopen_prove_device(queries, lag_stack, x: int, domain, srs, transcript):
     dinv, _ = domain_inverses(domain.k, zs, lag_stack.device)
     qs = []
     for gi, (rot, idxs) in enumerate(groups):
-        rows = lag_stack[torch.as_tensor([queries[i].row for i in idxs],
-                                         device=lag_stack.device)]
+        rows = lag_stack[to_device([queries[i].row for i in idxs],
+                                   lag_stack.device)]
         combined = _v_fold_device(rows, v)
         e = 0
         for i in idxs:

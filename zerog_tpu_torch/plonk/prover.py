@@ -28,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..field import FR, jfr, to_limbs, to_device
 from ..parallel.mesh import gather, mesh_key, shard_axis
 from ..poly.domain import Domain, get_domain
@@ -40,7 +41,15 @@ from .keygen import ProvingKey
 from .lookup import compress, commit_permuted, grand_product
 from .permutation import grand_products
 
-__all__ = ["Drbg", "create_proof"]
+__all__ = ["Drbg", "PHASES", "create_proof"]
+
+# the phases of a proof, in order: the spans ``phase.<name>`` and the keys of
+# create_proof's `timings`
+PHASES = ("synthesize", "commit_advice", "lookup_permute_commit",
+          "grand_products_commit", "random_poly_commit", "quotient_host_to_limbs",
+          "quotient_ntts_adv_fix", "quotient_aux_to_limbs", "quotient_ntts",
+          "quotient_eval", "quotient", "evals_dinv", "evals_bary", "evals",
+          "multiopen")
 
 
 def _hc_fold(h_stack, xn_limbs):
@@ -70,6 +79,39 @@ class Drbg:
             v = int.from_bytes(h, "little")
             if v >> 254 == 0 and v % FR.p == v:
                 return v
+
+
+class _Marks:
+    """The proof's phases: ``mark(name)`` ends the phase `name` of PHASES
+    and starts the next. Each phase is the span ``phase.<name>``
+    (:class:`zerog_tpu_torch.trace.Phases`) and, where `timings` is given,
+    its seconds there, summed, with the device synchronized at each mark so
+    that a phase's time includes the kernels it queued."""
+
+    def __init__(self, timings, device):
+        self.timings = timings
+        self.sync = device if timings is not None and device.type == "cuda" else None
+        self.phases = trace.Phases("phase.", PHASES)
+        self.last = None
+
+    def __enter__(self):
+        t = self.phases.start()
+        if self.timings is not None:
+            self.last = t or time.time_ns()
+        return self
+
+    def __call__(self, name):
+        if self.sync is not None:
+            torch.cuda.synchronize(self.sync)
+        t = self.phases.mark(name)
+        if self.timings is not None:
+            t = t or time.time_ns()
+            self.timings[name] = self.timings.get(name, 0.0) + (t - self.last) / 1e9
+            self.last = t
+
+    def __exit__(self, *exc):
+        self.phases.stop()
+        return False
 
 
 def _to_dev_lagrange(columns, device):
@@ -308,9 +350,11 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
     entry. All arithmetic is exact, so the proof bytes are those of the
     single-device path under the same seed.
 
-    `timings`: optional dict filled with per-phase wall times. When it is
-    given on a CUDA device, the device is synchronized before each mark, so
-    each phase's time includes the kernels it queued.
+    `timings`: optional dict filled with the wall seconds of each phase of
+    PHASES, the synchronized view of the phase spans ``phase.<name>`` of
+    :mod:`zerog_tpu_torch.trace`: where it is given on a CUDA device, the
+    device is synchronized at the end of each phase, so each phase's time
+    includes the kernels it queued. The spans alone synchronize nothing.
     """
     from ..device import resolve_device
 
@@ -323,17 +367,14 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
     if device != srs.device:
         raise ValueError(f"create_proof: device {device} differs from the "
                          f"SRS's device {srs.device}")
-    _last = [time.time()]
+    with trace.proof(), _Marks(timings, device) as mark:
+        return _prove(pk, srs, circuit, instances, rng_seed, transcript, debug,
+                      mark, device, mesh)
 
-    def _mark(name):
-        if timings is None:
-            return
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        now = time.time()
-        timings[name] = timings.get(name, 0.0) + (now - _last[0])
-        _last[0] = now
 
+def _prove(pk, srs, circuit, instances, rng_seed, transcript, debug, _mark,
+           device, mesh):
+    """The body of :func:`create_proof`; `_mark(name)` ends a phase."""
     vk = pk.vk
     cs = vk.cs
     k = vk.k
@@ -366,18 +407,20 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
     assert cs2.num_advice == cs.num_advice
     asn = Assignment(cs2, n)
     circuit.synthesize(config, asn)
-    asn.finalize_tables()
-    if cs.compression is not None:
-        # re-apply the keygen-recorded selector compression to the freshly
-        # synthesized fixed columns so they match vk.cs's layout
-        from .selectors import apply_to_fixed
+    with trace.span("frontend.finalize"):
+        asn.finalize_tables()
+        if cs.compression is not None:
+            # re-apply the keygen-recorded selector compression to the freshly
+            # synthesized fixed columns so they match vk.cs's layout
+            from .selectors import apply_to_fixed
 
-        asn.fixed = apply_to_fixed(cs.compression, asn.fixed, n)
+            asn.fixed = apply_to_fixed(cs.compression, asn.fixed, n)
     assert len(asn.fixed) == cs.num_fixed
     advice = asn.advice
-    for col in advice:
-        for i in range(usable, n):
-            col[i] = rng.field()
+    with trace.span("prover.blind"):
+        for col in advice:
+            for i in range(usable, n):
+                col[i] = rng.field()
 
     _mark("synthesize")
     advice_coms = srs.commit_lagrange([list(c) for c in advice])
@@ -398,9 +441,11 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
 
     lookups = []
     for name, pairs in cs.lookups:
-        a = compress([full_col(evaluate(i, host_ops)) for i, _ in pairs], theta)
-        s = compress([full_col(evaluate(t, host_ops)) for _, t in pairs], theta)
-        lc = commit_permuted(a, s, usable, rng)
+        with trace.span("prover.lookup_compress"):
+            a = compress([full_col(evaluate(i, host_ops)) for i, _ in pairs], theta)
+            s = compress([full_col(evaluate(t, host_ops)) for _, t in pairs], theta)
+        with trace.span("prover.lookup_permute"):
+            lc = commit_permuted(a, s, usable, rng)
         lookups.append(lc)
     if lookups:
         coms = srs.commit_lagrange(
@@ -423,13 +468,14 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
             return asn.fixed[col.index]
         return inst_padded[col.index]
 
-    perm_vals = [column_values(c) for c in cs.permutation_columns]
-    perm_zs = grand_products(
-        perm_vals, pk.sigma_values, beta, gamma, usable, n,
-        cs.permutation_chunk_len(), rng, device,
-    )
-    lookup_zs = [grand_product(lc, beta, gamma, usable, rng, device)
-                 for lc in lookups]
+    with trace.span("prover.grand_products"):
+        perm_vals = [column_values(c) for c in cs.permutation_columns]
+        perm_zs = grand_products(
+            perm_vals, pk.sigma_values, beta, gamma, usable, n,
+            cs.permutation_chunk_len(), rng, device,
+        )
+        lookup_zs = [grand_product(lc, beta, gamma, usable, rng, device)
+                     for lc in lookups]
 
     z_coms = srs.commit_lagrange(
         [list(z) for z in perm_zs] + [list(z) for z in lookup_zs]
@@ -441,7 +487,8 @@ def create_proof(pk: ProvingKey, srs, circuit, instances, rng_seed=None,
 
     # ---- phase 4: vanishing random poly ----------------------------------
     _mark("grand_products_commit")
-    random_poly = np.asarray([rng.field() for _ in range(n)], dtype=object)
+    with trace.span("prover.random_poly"):
+        random_poly = np.asarray([rng.field() for _ in range(n)], dtype=object)
     transcript.write_point(srs.commit(list(random_poly)))
 
     _mark("random_poly_commit")
