@@ -107,6 +107,20 @@ the C limb codec (``to_limbs`` / ``from_limbs``) against the numpy path
 20 x 2^17 Fr and 20 x 2^14 Fq values, both directions, with and without
 Montgomery form, with the seconds of both.
 
+The ``field_limbs`` phase (after ``kernels``; ``--phases
+env,build,field_limbs`` runs just it) holds JField's kernel path (``add``,
+``sub``, ``mul`` on CUDA tensors: one launch of ``field_limbs`` each)
+against JField's plain torch bodies (``add_plain``, ``sub_plain``,
+``mul_plain``) on the card, limb for limb, and the first 64 elements against
+Python ints: Fq and Fr, at 2^17 and 2^20 result elements, in each addressing
+mode of the program (same shape, one element, suffix, outer) and one that
+the wrapper copies. Its line gives each case's ms beside its byte bound, and
+the plain body's ms for Fr products. Every plain version a kernel is held
+against (``field_binop``'s, the MSM kernels', the NTT kernels', the
+bisection bodies') and the butterflies the NTT engine is held against run
+on JField's plain bodies (``bench.plain_field``), not on ``field_limbs``,
+and their ``plain_ms`` time those bodies.
+
 The ``large`` phase (``--phases env,build,codec,large`` runs just it)
 proves at MNIST-Large's shape, k = 17 (``make_synthetic_wnn(
 *MNIST_LARGE_SHAPE)``, ``Srs.setup(17, seed=b"bench-srs")``; NTTs at 2^17
@@ -153,12 +167,14 @@ import time
 import numpy as np
 import torch
 
-from zerog_tpu_torch import kernels, native
+from zerog_tpu_torch import kernels, native, trace
 from zerog_tpu_torch.bench import (IMAD_SLOTS_PER_MUL, bound, flush_scan_affine_bound,
-                                   gpu_line, segment_ids, time_ms, wall_ms)
+                                   gpu_line, plain_field, segment_ids, time_ms,
+                                   wall_ms)
 from zerog_tpu_torch.bench import field_chain, sass, scan_bisect
-from zerog_tpu_torch.field import FR, FQ, batch_inv, to_limbs, from_limbs, to_device
-from zerog_tpu_torch.field import limbs, pfield
+from zerog_tpu_torch.field import (FR, FQ, JField, batch_inv, to_limbs, from_limbs,
+                                   to_device)
+from zerog_tpu_torch.field import jfield, limbs, pfield
 from zerog_tpu_torch.curve import Srs, pscan, pfold, pippenger
 from zerog_tpu_torch.curve import srs as srs_module
 from zerog_tpu_torch.curve.bn254 import G1_GEN, g1_mul
@@ -185,6 +201,8 @@ LARGE_PROOF_SHA256 = "d6a1d8064c1bcc31a62e663ace7ce21286ac30a45f9f1c272399d8434d
 KERNEL_META = {
     "field_binop": ("zerog_tpu_torch/csrc/field_binop.cu",
                     "zerog_tpu/field/pfield.py:252"),
+    "field_limbs": ("zerog_tpu_torch/csrc/field_limbs.cu",
+                    "none: JField's add, sub and mul (zerog_tpu/field/jfield.py, XLA)"),
     "flush_scan_affine": ("zerog_tpu_torch/csrc/flush_scan.cu",
                           "zerog_tpu/curve/pscan.py:191"),
     "flush_scan_jac": ("zerog_tpu_torch/csrc/flush_scan.cu",
@@ -444,7 +462,8 @@ def _weighted_case(planes, check=True):
     if check:
         st = tuple(kernels.from_word_planes(p).reshape(k, c, 1, 16) for p in planes[:3])
         bias = tuple(kernels.from_word_planes(p).reshape(c, 1, 16) for p in planes[3:])
-        ref, res["plain_ms"] = wall_ms(lambda: pfold.weighted_plain(st, bias))
+        with plain_field():
+            ref, res["plain_ms"] = wall_ms(lambda: pfold.weighted_plain(st, bias))
         got = tuple(kernels.from_word_planes(o).reshape(c, 1, 16) for o in out)
         if not all(_eq(a, b) for a, b in zip(got, ref)):
             raise AssertionError(f"weighted_fold K={k} lanes={c} != plain version")
@@ -520,9 +539,10 @@ def _scan_affine_case(planes, latency_us, check=True, buckets=None):
         got = tuple(pscan.pieces_from_planes(
             torch.cat([out[i], out[3 + i][None]], dim=0), 1, ct) for i in range(3))
         stream = tuple(pscan.pieces_from_planes(p, 1, ct) for p in (sx, sy))
-        ref, res["plain_ms"] = wall_ms(lambda: pscan.flush_scan_plain(
-            stream + (val.bool().reshape(r, 1, ct),), fl.bool().reshape(r, 1, ct),
-            affine=True))
+        with plain_field():
+            ref, res["plain_ms"] = wall_ms(lambda: pscan.flush_scan_plain(
+                stream + (val.bool().reshape(r, 1, ct),), fl.bool().reshape(r, 1, ct),
+                affine=True))
         if not all(_eq(a, b) for a, b in zip(got, ref)):
             raise AssertionError(f"flush_scan_affine R={r} C={ct} != plain version")
         res["max_abs_err"] = _max_abs_err(got, ref)
@@ -549,8 +569,9 @@ def _scan_jac_case(planes, check=True):
     res = _fold_work(_nonidentity(sz), fl)
     if check:
         stream = tuple(pscan.pieces_from_planes(p, 1, ct) for p in (sx, sy, sz))
-        ref, res["plain_ms"] = wall_ms(lambda: pscan.flush_scan_plain(
-            stream, fl.bool().reshape(r, 1, ct), affine=False))
+        with plain_field():
+            ref, res["plain_ms"] = wall_ms(lambda: pscan.flush_scan_plain(
+                stream, fl.bool().reshape(r, 1, ct), affine=False))
         if not all(_eq(a, b) for a, b in zip(got, ref)):
             raise AssertionError(f"flush_scan_jac R={r} C={ct} != plain version")
         res["max_abs_err"] = _max_abs_err(got, ref)
@@ -589,7 +610,8 @@ def _sum_rows_case(jobs, check=True):
             l, _, ct = job[0].shape
             xs = tuple(kernels.from_word_planes(p).reshape(l, 1, ct, 16)
                        for p in job)
-            ref, plain = wall_ms(lambda: pfold.sum_rows_plain(xs))
+            with plain_field():
+                ref, plain = wall_ms(lambda: pfold.sum_rows_plain(xs))
             got = tuple(kernels.from_word_planes(o).reshape(1, ct, 16)
                         for o in out)
             if not all(_eq(a, b) for a, b in zip(got, ref)):
@@ -837,6 +859,116 @@ def phase_kernels():
     return res
 
 
+# ---- phase 3a: field_limbs — JField's kernel path against its plain bodies ---------
+
+LIMBS_ROWS = 8      # the leading dimension of the suffix and outer cases
+LIMBS_LOG_N = (17, 20)
+
+
+def _limbs_case(rng, mode, n, params):
+    """(a, b, elements read) of one addressing mode with n result elements:
+    canonical random limbs on the card, the first 64 of a row 0, 1, p - 1,
+    R mod p, R^2 mod p and random values as Python ints."""
+    p = params.p
+    rnd = random.Random(SEED + n + len(mode))
+    head = [0, 1, p - 1, params.r_mont % p, params.r_mont ** 2 % p]
+    head += [rnd.randrange(p) for _ in range(64 - len(head))]
+    w = n // LIMBS_ROWS
+
+    def rand(shape):
+        x = _rand_mont(rng, shape)
+        k = min(64, x.numel() // 16)
+        x.reshape(-1, 16)[:k] = to_device(to_limbs(head[:k]), DEV)
+        return x
+
+    if mode == "same":
+        a, b = rand((n,)), rand((n,))
+    elif mode == "one":
+        a, b = rand((n,)), to_device(to_limbs(params.r_mont ** 2 % p), DEV)
+    elif mode == "suffix":      # coefficients [C, n] times a coset's powers [n]
+        a, b = rand((LIMBS_ROWS, w)), rand((w,))
+    elif mode == "outer":       # beta delta^j [C, 1] times w^i [1, n]
+        a, b = rand((LIMBS_ROWS,))[:, None], rand((w,))[None]
+    else:                       # limbs last of word-plane-like [16, n]: a copy
+        a = torch.movedim(rand((n,)).t().contiguous(), 0, -1)
+        b = rand((n,))
+    return a, b, (a.numel() + b.numel()) // 16
+
+
+def _limbs_truth(params, op, a, b):
+    """Python-int values of the first 64 result elements of a row."""
+    p = params.p
+    rinv = pow(params.r_mont, -1, p)
+    fn = {"mul": lambda x, y: x * y * rinv % p, "add": lambda x, y: (x + y) % p,
+          "sub": lambda x, y: (x - y) % p}[op]
+    xa, xb = (t.expand(torch.broadcast_shapes(a.shape, b.shape)).reshape(-1, 16)[:64]
+              for t in (a, b))
+    return [fn(int(x), int(y)) for x, y in zip(from_limbs(xa), from_limbs(xb))]
+
+
+def phase_field_limbs():
+    """``field_limbs`` (JField's add, sub and mul on a CUDA tensor) against
+    JField's plain torch bodies on the card, limb for limb, and its first 64
+    elements against Python ints: Fq and Fr, mul, add and sub, at 2^17 and
+    2^20 result elements, in every addressing mode of the program (same
+    shape; one element; [8, n/8] against a suffix [n/8]; [8, 1] against
+    [1, n/8]) and one the wrapper copies first (limbs not contiguous). Each
+    case's ms (CUDA events; a copied case includes its copy) beside its
+    bound (the bytes of each operand read once and the result written, at
+    3.35e12 B/s, or a product's IMAD slots a result element) and the plain
+    body's ms (Fr mul only). Returns {"field_limbs": headline}."""
+    rng = np.random.default_rng(SEED + 10)
+    kernels.reset_launch_counts()
+    cases = []
+    worst = 0
+    for params in (FQ, FR):
+        f = jfield.jfq() if params is FQ else jfield.jfr()
+        for log_n in LIMBS_LOG_N:
+            n = 1 << log_n
+            for mode in ("same", "one", "suffix", "outer", "copied"):
+                a, b, elems = _limbs_case(rng, mode, n, params)
+                for op in ("mul", "add", "sub"):
+                    got = getattr(f, op)(a, b)
+                    ref = getattr(f, op + "_plain")(a, b)
+                    sync()
+                    if not _eq(got, ref):
+                        raise AssertionError(f"field_limbs {params.name}.{op} {mode} "
+                                             f"n=2^{log_n} != plain body")
+                    if (list(from_limbs(got.reshape(-1, 16)[:64]))
+                            != _limbs_truth(params, op, a, b)):
+                        raise AssertionError(f"field_limbs {params.name}.{op} {mode} "
+                                             f"n=2^{log_n} != Python-int truth")
+                    worst = max(worst, _max_abs_err((got,), (ref,)))
+                    del got, ref
+                    b_ms, b_by = bound(128 * (elems + n),
+                                       IMAD_SLOTS_PER_MUL * n if op == "mul" else 0)
+                    ms = time_ms(lambda: getattr(f, op)(a, b))
+                    case = dict(field=params.name, op=op, mode=mode, log_n=log_n,
+                                ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                bound_share=b_ms / ms)
+                    if params is FR and op == "mul":
+                        case["plain_ms"] = time_ms(lambda: f.mul_plain(a, b), reps=3)
+                    cases.append(case)
+                del a, b
+    launches = kernels.launch_counts()["field_limbs"]
+    emit(dict(phase="field_limbs", equal_to_plain=True, tolerance=0,
+              max_abs_err=worst, cases=cases, launches=launches))
+
+    def pick(log_n):
+        return next(c for c in cases if c["field"] == "Fr" and c["op"] == "mul"
+                    and c["mode"] == "same" and c["log_n"] == log_n)
+
+    narrow, wide = (pick(log_n) for log_n in LIMBS_LOG_N)
+    return {"field_limbs": dict(
+        ms=narrow["ms"], plain_ms=narrow["plain_ms"], bound_ms=narrow["bound_ms"],
+        bound_by=narrow["bound_by"], max_abs_err=worst,
+        shape=f"Fr mul, n={1 << LIMBS_LOG_N[0]}, same shape",
+        bound_share=narrow["bound_share"], ms_wide=wide["ms"],
+        wide_shape=f"Fr mul, n={1 << LIMBS_LOG_N[1]}, same shape",
+        bound_wide_ms=wide["bound_ms"],
+        bound_share_wide=wide["bound_share"], plain_ms_wide=wide["plain_ms"])}
+
+
 # ---- phase 3b: bench — the measuring kernels 8 and 9 -----------------------------
 
 def phase_bench():
@@ -942,8 +1074,9 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
     for (dp, key, xb), ((acc, colsum, rowc, tw, out_bytes), out) in zip(
             rec.levels, rec.epilogues):
         t, lanes = acc.shape[1], acc.shape[2]
-        ref, plain = wall_ms(
-            lambda: pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes))
+        with plain_field():
+            ref, plain = wall_ms(
+                lambda: pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes))
         if not _eq(out, ref):
             raise AssertionError(f"ntt_epilogue t={t} lanes={lanes} != plain")
         ms = time_ms(lambda: pntt.epilogue_words(acc, colsum, rowc, tw,
@@ -970,8 +1103,9 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
         twr = _rand_word_planes(rng, t, lanes)
         for ob in (True, False):
             got = pntt.epilogue_words(acc, colsum, rowc, twr, ob)
-            ref, plain_tw = wall_ms(
-                lambda: pntt.epilogue_plain(acc, colsum, rowc, twr, ob))
+            with plain_field():
+                ref, plain_tw = wall_ms(
+                    lambda: pntt.epilogue_plain(acc, colsum, rowc, twr, ob))
             if not _eq(got, ref):
                 raise AssertionError(f"ntt_epilogue with twiddle t={t} "
                                      f"lanes={lanes} out_bytes={ob} != plain")
@@ -984,7 +1118,8 @@ def _check_engine_kernels(rec, rng, n, res, levels_out):
     for (xb, twc), (out, colsum) in rec.twiddles:
         s, lanes, r = xb.shape[1], xb.shape[2], twc.shape[2]
         g = lanes // r
-        (ref, ref_sum), plain = wall_ms(lambda: pntt.twiddle_plain(xb, twc))
+        with plain_field():
+            (ref, ref_sum), plain = wall_ms(lambda: pntt.twiddle_plain(xb, twc))
         if not (_eq(out, ref) and _eq(colsum, ref_sum)):
             raise AssertionError(f"ntt_twiddle s={s} lanes={lanes} != plain")
         ms = time_ms(lambda: pntt.twiddle_words(xb, twc), reps=5)
@@ -1041,22 +1176,26 @@ def phase_ntt(batch):
         with _LevelRecorder() as rec:
             ev = plan.ntt(x)
             sync()
-        ev_b = plan._transform(x, plan._fwd_tw)
+        co = plan.intt(ev)
+        # the butterflies on JField's plain bodies
+        with plain_field():
+            ev_b = plan._transform(x, plan._fwd_tw)
+            co_b = plan._intt_impl(ev)
+            butterfly_ms = dict(
+                butterfly_fwd_ms=time_ms(lambda: plan._transform(x, plan._fwd_tw),
+                                         reps=3),
+                butterfly_inv_ms=time_ms(lambda: plan._intt_impl(ev), reps=3))
         if not _eq(ev, ev_b):
             raise AssertionError(f"engine forward n=2^{log_n} != butterflies")
-        co = plan.intt(ev)
-        if not (_eq(co, plan._intt_impl(ev)) and _eq(co, x)):
+        if not (_eq(co, co_b) and _eq(co, x)):
             raise AssertionError(f"engine inverse n=2^{log_n} != butterflies")
         _check_engine_kernels(rec, rng, n, res, levels)
         del rec
         transforms.append(dict(
             n=n, batch=batch,
             engine_fwd_ms=time_ms(lambda: plan.ntt(x), reps=5),
-            butterfly_fwd_ms=time_ms(lambda: plan._transform(x, plan._fwd_tw),
-                                     reps=3),
-            engine_inv_ms=time_ms(lambda: plan.intt(ev), reps=5),
-            butterfly_inv_ms=time_ms(lambda: plan._intt_impl(ev), reps=3)))
-        del x, ev, ev_b, co
+            engine_inv_ms=time_ms(lambda: plan.intt(ev), reps=5), **butterfly_ms))
+        del x, ev, ev_b, co, co_b
 
     # coset-extended: the prover's k = 14, degree-6 domain (extended 2^17)
     dom = get_domain(K, 6, DEV)
@@ -1067,9 +1206,10 @@ def phase_ntt(batch):
     saved = NttPlan.MXU_MIN_LOG_N
     NttPlan.MXU_MIN_LOG_N = 64
     try:
-        ext_b = dom.coeff_to_extended(c)
-        back_b = dom.extended_to_coeff(ext_b)
-        ext_b_ms = time_ms(lambda: dom.coeff_to_extended(c), reps=3)
+        with plain_field():
+            ext_b = dom.coeff_to_extended(c)
+            back_b = dom.extended_to_coeff(ext_b)
+            ext_b_ms = time_ms(lambda: dom.coeff_to_extended(c), reps=3)
     finally:
         NttPlan.MXU_MIN_LOG_N = saved
     if not (_eq(ext, ext_b) and _eq(back, back_b)
@@ -1872,7 +2012,8 @@ def _check_levels(rec, n):
         raise AssertionError(f"the n = {n} transform launched no ntt_epilogue")
     out = []
     for (acc, colsum, rowc, tw, out_bytes), got in rec.epilogues:
-        ref = pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes)
+        with plain_field():
+            ref = pntt.epilogue_plain(acc, colsum, rowc, tw, out_bytes)
         if not _eq(got, ref):
             raise AssertionError(f"ntt_epilogue {tuple(acc.shape)} != plain")
         t, lanes = acc.shape[1], acc.shape[2]
@@ -1884,7 +2025,8 @@ def _check_levels(rec, n):
                         bound_ms=b_ms, bound_by=b_by, max_abs_err=0))
         del ref
     for (xb, twc), (got, colsum) in rec.twiddles:
-        ref, ref_sum = pntt.twiddle_plain(xb, twc)
+        with plain_field():
+            ref, ref_sum = pntt.twiddle_plain(xb, twc)
         if not (_eq(got, ref) and _eq(colsum, ref_sum)):
             raise AssertionError(f"ntt_twiddle {tuple(xb.shape)} != plain")
         s, lanes, r = xb.shape[1], xb.shape[2], twc.shape[2]
@@ -1896,6 +2038,45 @@ def _check_levels(rec, n):
                         bound_ms=b_ms, bound_by=b_by, max_abs_err=0))
         del ref, ref_sum
     return out
+
+
+class _NoCardConv:
+    """While active, JField's float64 convolution (the plain product's) raises
+    on a CUDA tensor: every product on the card must take ``field_limbs``."""
+
+    def __enter__(self):
+        self._saved = jfield._conv
+
+        def conv(a, b):
+            if a.is_cuda:
+                raise AssertionError("JField made a float64 block on the card")
+            return self._saved(a, b)
+
+        jfield._conv = conv
+        return self
+
+    def __exit__(self, *exc):
+        jfield._conv = self._saved
+
+
+class _CardFieldCalls:
+    """While active, counts JField's add, sub and mul calls on CUDA tensors
+    (``calls``), beside the program's own counter of the kernel that serves
+    them."""
+
+    def __enter__(self):
+        self.calls = 0
+        self._saved = {op: JField.__dict__[op] for op in ("add", "sub", "mul")}
+        for op, fn in self._saved.items():
+            def counted(f, a, b, _fn=fn):
+                self.calls += a.is_cuda
+                return _fn(f, a, b)
+            setattr(JField, op, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for op, fn in self._saved.items():
+            setattr(JField, op, fn)
 
 
 def phase_large():
@@ -1910,7 +2091,12 @@ def phase_large():
     with every kernel 6 and 7 call held against its plain version and the
     engine against the butterflies; those launches are not counted. The
     launches of keygen, the two proofs and verify are the ``large`` column
-    of ``launches_by_path``."""
+    of ``launches_by_path``. Keygen and the proofs run with JField's float64
+    convolution refused on the card (``_NoCardConv``). A third proof under a
+    profile of the host gives the program's counters ``field_ops``,
+    ``field_kernel`` and ``field_kernel_copies`` (``traced_proof_counters``);
+    ``field_kernel`` must equal that proof's JField add, sub and mul calls on
+    CUDA tensors, counted apart (``_CardFieldCalls``)."""
     from zerog_tpu_torch.models import MNIST_LARGE_SHAPE, make_synthetic_wnn
 
     t_phase = time.time()
@@ -1933,10 +2119,11 @@ def phase_large():
         srs, Srs(srs.k, srs.g, srs.g_lagrange, srs.g2, srs.s_g2)), 3)
 
     kernels.reset_launch_counts()
-    pk = timed("keygen", wnn.generate_proving_key, srs)
-    with _AdviceRecorder(srs) as adv:
-        proof1, out1 = timed("prove_first", wnn.proof, pk, srs, image,
-                             rng_seed=b"chip-smoke-large")
+    with _NoCardConv():
+        pk = timed("keygen", wnn.generate_proving_key, srs)
+        with _AdviceRecorder(srs) as adv:
+            proof1, out1 = timed("prove_first", wnn.proof, pk, srs, image,
+                                 rng_seed=b"chip-smoke-large")
     before_checks = kernels.launch_counts()
 
     # the first advice commitment against the tau ground truth
@@ -1968,8 +2155,10 @@ def phase_large():
     saved = NttPlan.MXU_MIN_LOG_N
     NttPlan.MXU_MIN_LOG_N = 64
     try:
-        if not (_eq(coeff, dom.lagrange_to_coeff(lag))
-                and _eq(ext, dom.coeff_to_extended(coeff))):
+        with plain_field():
+            same = (_eq(coeff, dom.lagrange_to_coeff(lag))
+                    and _eq(ext, dom.coeff_to_extended(coeff)))
+        if not same:
             raise AssertionError("k = 17 advice transforms: engine != butterflies")
     finally:
         NttPlan.MXU_MIN_LOG_N = saved
@@ -1981,8 +2170,9 @@ def phase_large():
 
     torch.cuda.reset_peak_memory_stats(DEV)
     timings = {}
-    proof2, out2 = timed("prove_second", wnn.proof, pk, srs, image,
-                         rng_seed=b"chip-smoke-large", timings=timings)
+    with _NoCardConv():
+        proof2, out2 = timed("prove_second", wnn.proof, pk, srs, image,
+                             rng_seed=b"chip-smoke-large", timings=timings)
     peak_warm = torch.cuda.max_memory_allocated(DEV)
     ok = timed("verify", wnn.verify_proof, proof2, srs, pk.vk, out2)
     launches = {k: c - check_launches.get(k, 0)
@@ -2006,16 +2196,38 @@ def phase_large():
     if not _rejected(wnn.verify_proof, proof2, srs, pk.vk, wrong):
         raise AssertionError("wrong scores accepted at k = 17")
     # kernel 3 runs only where a column's bucket run outgrows the scan rows
-    for name in ("flush_scan_affine", "sum_rows", "weighted_fold") + NTT_KERNELS:
+    for name in ("flush_scan_affine", "sum_rows", "weighted_fold",
+                 "field_limbs") + NTT_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched by the "
                                  "large path")
+    # a third proof under a profile of the host: the program's counters of
+    # its field ops; each add, sub and mul on the card is one launch
+    before = kernels.launch_counts()["field_limbs"]
+    trace.reset()
+    with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]),
+          _CardFieldCalls() as card_calls):
+        proof3, _ = wnn.proof(pk, srs, image, rng_seed=b"chip-smoke-large")
+    sync()
+    counted = trace.summary()["per_proof"][0]
+    trace.reset()
+    field_counters = dict(
+        field_ops=counted.get("field_ops", 0), field_kernel=counted.get("field_kernel", 0),
+        field_kernel_copies=counted.get("field_kernel_copies", 0),
+        card_add_sub_mul_calls=card_calls.calls,
+        field_limbs_launches=kernels.launch_counts()["field_limbs"] - before)
+    if proof3 != proof2:
+        raise AssertionError("the traced k = 17 proof's bytes differ")
+    if field_counters["field_kernel"] != field_counters["card_add_sub_mul_calls"]:
+        raise AssertionError("field_kernel != JField's add, sub and mul calls on "
+                             f"the card: {field_counters}")
     emit(dict(phase="large", k=LARGE_K,
               model="make_synthetic_wnn(49, 8192, 4, 6, seed=0)", l=wnn.l, p=wnn.p,
               scores=scores, seconds=secs, total_s=round(time.time() - t_phase, 3),
               timings={k: round(v, 4) for k, v in timings.items()},
               proof_bytes=len(proof2), proof_sha256=sha,
               launches=launches, check_launches=check_launches,
+              traced_proof_counters=field_counters,
               max_memory_allocated_gib=dict(
                   through_first_proof_and_checks=round(peak_first / 2**30, 3),
                   warm_proof=round(peak_warm / 2**30, 3)),
@@ -2030,8 +2242,8 @@ def phase_large():
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="env,build,codec,kernels,bench,ntt,commit,"
-                                        "prove,wnn,cli,mesh,large")
+    ap.add_argument("--phases", default="env,build,codec,kernels,field_limbs,bench,"
+                                        "ntt,commit,prove,wnn,cli,mesh,large")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if ("cli" in phases or "mesh" in phases) and "wnn" not in phases:
@@ -2054,6 +2266,8 @@ def run(phases):
     if "codec" in phases:
         phase_codec()
     kres = phase_kernels() if "kernels" in phases else {}
+    if "field_limbs" in phases:
+        kres.update(phase_field_limbs())
     by_path = {}
     if "bench" in phases:
         bench_res, by_path["bench"] = phase_bench()
@@ -2112,9 +2326,11 @@ def run(phases):
                                      if k != "launches"}
         if name == "ntt_twiddle" and r:
             row.update(regroup_copy_ms=r["regroup_copy_ms"], levels=r["levels"])
-        if name == "field_binop" and r:
+        if name in ("field_binop", "field_limbs") and r:
             row.update(bound_share=r["bound_share"],
                        bound_share_wide=r["bound_share_wide"])
+        if name == "field_limbs" and r:
+            row["plain_ms_wide"] = r["plain_ms_wide"]
         if name == "ntt_epilogue" and r:
             row.update(int_mm_ms=r["int_mm_ms"],
                        with_twiddle="not on the path; checked on the path's "

@@ -280,7 +280,7 @@ def test_cpu_tensors_take_plain_versions_and_leave_the_build_alone():
     assert kernels._LIB is None
     assert build_dir.exists() == existed
     assert set(kernels.launch_counts()) == {
-        "field_binop", "flush_scan_affine", "flush_scan_jac", "sum_rows",
+        "field_binop", "field_limbs", "flush_scan_affine", "flush_scan_jac", "sum_rows",
         "weighted_fold", "ntt_epilogue", "ntt_twiddle", "field_chain",
         "scan_bisect_trivial", "scan_bisect_mul_smem", "scan_bisect_mul_reg",
         "scan_bisect_madd"}

@@ -8,11 +8,13 @@ with its plain version and a ``main``:
 
 Both run on the CUDA card and raise without one. This module holds what they
 share: seeded canonical inputs, CUDA-event timing, and the least time the
-card could take for a piece of work (its bound).
+card could take for a piece of work (its bound), and :func:`plain_field`, under
+which the plain versions of the kernels run plain torch arithmetic on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
 import time
@@ -20,8 +22,10 @@ import time
 import numpy as np
 import torch
 
+from ..field.jfield import JField
+
 __all__ = ["PEAK_BYTES_PER_S", "PEAK_INT32_MAD_PER_S", "IMAD_SLOTS_PER_MUL",
-           "random_words", "time_ms", "wall_ms", "bound",
+           "random_words", "time_ms", "wall_ms", "plain_field", "bound",
            "flush_scan_affine_bound", "segment_ids", "gpu_line"]
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
@@ -89,6 +93,24 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.time() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def plain_field():
+    """While active, JField's add, sub and mul run their plain torch bodies
+    (``add_plain``, ``sub_plain``, ``mul_plain``) on every device, and so do
+    the ops derived from them. The plain versions of the kernels reach JField
+    (through ``jpoints``, ``pntt``'s plain bodies, the NTT butterflies); on a
+    CUDA tensor its ops are otherwise launches of ``field_limbs``, built on
+    the same ``field.cuh`` bodies as the kernels those plain versions check."""
+    saved = {op: JField.__dict__[op] for op in ("add", "sub", "mul")}
+    for op in saved:
+        setattr(JField, op, JField.__dict__[op + "_plain"])
+    try:
+        yield
+    finally:
+        for op, fn in saved.items():
+            setattr(JField, op, fn)
 
 
 def bound(nbytes, slots):

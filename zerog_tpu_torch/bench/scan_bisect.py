@@ -80,7 +80,7 @@ from ..curve.pscan import flush_scan_affine_words
 from ..device import resolve_device
 from ..field import FQ, jfq
 from . import (IMAD_SLOTS_PER_MUL, bound, flush_scan_affine_bound, gpu_line,
-               random_words, segment_ids, time_ms, wall_ms)
+               plain_field, random_words, segment_ids, time_ms, wall_ms)
 from .field_chain import product_latency_us
 
 __all__ = ["BODIES", "scan_bisect", "scan_bisect_words", "scan_bisect_plain",
@@ -331,8 +331,9 @@ def check(narrow_in, outs):
         if not torch.equal(wide[..., :cols], narrow):
             raise AssertionError(f"scan_bisect_{body}: the wide run's first "
                                  f"{cols} columns differ from the narrow run")
-    plain = {body: wall_ms(lambda: scan_bisect_plain(body, lx, ly, lf))
-             for body in ("trivial", "mul_reg", "madd")}
+    with plain_field():
+        plain = {body: wall_ms(lambda: scan_bisect_plain(body, lx, ly, lf))
+                 for body in ("trivial", "mul_reg", "madd")}
     plain["mul_smem"] = plain["mul_reg"]
     res = {}
     for body in BODIES:

@@ -21,11 +21,22 @@ module boundary:
   one integer addition of the packed generate/propagate masks (the carry
   chain of an adder is exactly the limb carry chain).
 
-All functions are shape-polymorphic over leading batch dimensions and run
-eagerly on whatever device their operands live on. Traced
-(:mod:`zerog_tpu_torch.trace`), each call of a public op of :class:`JField`
-adds 1 to the counter ``field_ops``, a call made inside another op too
-(``square`` counts itself and its ``mul``).
+All functions are shape-polymorphic over leading batch dimensions and
+broadcast as torch broadcasts. On a CPU tensor ``add``, ``sub`` and ``mul``
+run the plain torch bodies above (``add_plain``, ``sub_plain``,
+``mul_plain``); on a CUDA tensor each is one launch of the kernel
+``field_limbs`` (``csrc/field_limbs.cu``: the field bodies of ``field.cuh``
+on the same int64 limb layout, every operand addressed with its own strides,
+a broadcast one with a stride of 0), whose results equal the plain bodies'
+limb for limb. The derived ops (``square``, ``neg``, ``to_mont``,
+``from_mont``, ``pow_const``, ``sum``) follow them.
+
+Traced (:mod:`zerog_tpu_torch.trace`), each call of a public op of
+:class:`JField` adds 1 to the counter ``field_ops``, a call made inside
+another op too (``square`` counts itself and its ``mul``); each launch of
+the kernel adds 1 to ``field_kernel``, and each operand that it had to copy
+first (a view that one stride a dimension cannot address) 1 to
+``field_kernel_copies``.
 """
 
 from __future__ import annotations
@@ -36,11 +47,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import trace
+from .. import kernels, trace
 from .params import FieldParams, FR, FQ, NLIMB, LIMB_BITS, MASK
 
 __all__ = [
     "NLIMB", "LIMB_BITS", "JField", "jfr", "jfq", "shift_fill",
+    "plan_strides", "limbs_operands", "field_limbs",
 ]
 
 
@@ -154,6 +166,114 @@ def _conv(a, b):
     return (flat @ _column_sums(a.device)).to(torch.int64)
 
 
+# ---- the kernel path: field_limbs ------------------------------------------------
+
+_OPS = {"mul": 0, "add": 1, "sub": 2}
+
+
+def plan_strides(shape_a, stride_a, shape_b, stride_b):
+    """How ``field_limbs`` addresses a binary op on two limb tensors.
+
+    `shape_x` and `stride_x` are an operand's element dimensions (the limb
+    axis left out) and their strides in int64 words. Returns ``(out_shape,
+    rows, cols, (sr_a, sc_a), (sr_b, sc_b))``: the broadcast element shape,
+    and the result's elements as ``[rows, cols]`` with element (r, c) of
+    each operand at ``r * sr + c * sc``; a broadcast dimension has stride 0.
+    Dimensions of size 1 are dropped and neighbours that both operands step
+    through evenly are merged; None where more than two remain."""
+    out = tuple(torch.broadcast_shapes(tuple(shape_a), tuple(shape_b)))
+
+    def expanded(shape, stride):
+        pad = len(out) - len(shape)
+        return [0 if i < pad or shape[i - pad] == 1 else stride[i - pad]
+                for i in range(len(out))]
+
+    dims = []           # (size, stride of a, stride of b), outermost first
+    for size, sa, sb in zip(out, expanded(shape_a, stride_a),
+                            expanded(shape_b, stride_b)):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == sa * size and dims[-1][2] == sb * size:
+            dims[-1] = (dims[-1][0] * size, sa, sb)
+        else:
+            dims.append((size, sa, sb))
+    if len(dims) > 2:
+        return None
+    dims = [(1, 0, 0)] * (2 - len(dims)) + dims
+    (rows, ra, rb), (cols, ca, cb) = dims
+    return out, rows, cols, (ra, ca), (rb, cb)
+
+
+def _fresh(x, shape):
+    """`x` broadcast to `shape` + the limb axis, as a new contiguous tensor."""
+    out = torch.empty(tuple(shape) + (NLIMB,), dtype=x.dtype, device=x.device)
+    return out.copy_(x.expand_as(out))
+
+
+def _addressable(x):
+    """Whether the kernel can read `x` in place: limbs contiguous, 16-byte
+    aligned, every element stride even (16-byte loads of limb pairs)."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 2 == 0 for s, n in zip(x.stride()[:-1], x.shape[:-1])
+                    if n > 1))
+
+
+def limbs_operands(a, b):
+    """The operands of one ``field_limbs`` launch on int64 limb tensors `a`
+    and `b`, on any device: ``(out_shape, rows, cols, a, (sr_a, sc_a), b,
+    (sr_b, sc_b))`` as :func:`plan_strides` gives them. An operand that the
+    kernel cannot read in place, or every operand not already contiguous at
+    the result's shape where more than two dimensions are left, is first
+    copied, contiguous at the result's shape, and counted in
+    ``field_kernel_copies``."""
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype != torch.int64 or x.dim() == 0 or x.shape[-1] != NLIMB:
+            raise ValueError(f"field_limbs: {name} is not an int64 limb tensor "
+                             f"[..., {NLIMB}] (got {x.dtype} {tuple(x.shape)})")
+
+    def plan(x, y):
+        return plan_strides(x.shape[:-1], x.stride()[:-1], y.shape[:-1], y.stride()[:-1])
+
+    planned = plan(a, b)
+    out = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+    ops = [a, b]
+    for i, x in enumerate(ops):
+        full = tuple(x.shape[:-1]) == out and x.is_contiguous()
+        if not _addressable(x) or (planned is None and not full):
+            # a contiguous operand steps evenly through every dimension, so
+            # the plan again merges at least what it merged before
+            ops[i] = _fresh(x, out)
+            trace.count("field_kernel_copies")
+    if ops[0] is not a or ops[1] is not b:
+        planned = plan(*ops)
+    out, rows, cols, sa, sb = planned
+    return out, rows, cols, ops[0], sa, ops[1], sb
+
+
+@kernels.register("field_limbs")
+def field_limbs(params: FieldParams, op: str, a, b):
+    """Launch ``field_limbs``: `op` (mul, add or sub) of Fq or Fr over int64
+    limb tensors [..., 16] on one CUDA device, broadcast as torch
+    broadcasts. Returns a new contiguous tensor of the broadcast shape.
+    Each launch is counted in ``field_kernel``."""
+    if params.name not in ("Fq", "Fr"):
+        raise ValueError(f"field_limbs: no kernel for field {params.name}")
+    if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.is_cuda and b.device == a.device):
+        raise ValueError("field_limbs: expected two CUDA tensors on one device")
+    out_shape, rows, cols, a, (sra, sca), b, (srb, scb) = limbs_operands(a, b)
+    out = torch.empty(out_shape + (NLIMB,), dtype=torch.int64, device=a.device)
+    if out.numel() == 0:
+        return out
+    trace.count("field_kernel")
+    with kernels.on_device(a) as stream:
+        code = kernels.lib().zg_field_limbs(
+            a.data_ptr(), sra, sca, b.data_ptr(), srb, scb, out.data_ptr(),
+            rows, cols, 0 if params.name == "Fq" else 1, _OPS[op], stream)
+    kernels.launched("field_limbs", code)
+    return out
+
+
 class JField:
     """Tensor arithmetic for one prime field, in Montgomery form."""
 
@@ -204,23 +324,39 @@ class JField:
     # -- ring ops ----------------------------------------------------------
     def add(self, a, b):
         trace.count("field_ops")
-        s, _ = _normalize(a + b, NLIMB, 0)  # a + b < 2p < 2^255: no carry out
-        return self._cond_sub_p(s)
+        if a.is_cuda:
+            return field_limbs(self.params, "add", a, b)
+        return self.add_plain(a, b)
 
     def sub(self, a, b):
         trace.count("field_ops")
-        # a - b = a + p + (2^256 - b) mod 2^256; all columns non-negative.
-        cols = a + self._c("p1_limbs", a.device) + (b ^ MASK)
-        d, _ = _normalize(cols, NLIMB, 1)  # drop the 2^256 carry
-        return self._cond_sub_p(d)
+        if a.is_cuda:
+            return field_limbs(self.params, "sub", a, b)
+        return self.sub_plain(a, b)
+
+    def mul(self, a, b):
+        """Montgomery product: (a * b * R^{-1}) mod p."""
+        trace.count("field_ops")
+        if a.is_cuda:
+            return field_limbs(self.params, "mul", a, b)
+        return self.mul_plain(a, b)
 
     def neg(self, a):
         trace.count("field_ops")
         return self.sub(torch.zeros_like(a), a)
 
-    def mul(self, a, b):
-        """Montgomery product: (a * b * R^{-1}) mod p."""
-        trace.count("field_ops")
+    # -- the plain bodies: torch ops on any device ---------------------------
+    def add_plain(self, a, b):
+        s, _ = _normalize(a + b, NLIMB, 0)  # a + b < 2p < 2^255: no carry out
+        return self._cond_sub_p(s)
+
+    def sub_plain(self, a, b):
+        # a - b = a + p + (2^256 - b) mod 2^256; all columns non-negative.
+        cols = a + self._c("p1_limbs", a.device) + (b ^ MASK)
+        d, _ = _normalize(cols, NLIMB, 1)  # drop the 2^256 carry
+        return self._cond_sub_p(d)
+
+    def mul_plain(self, a, b):
         dev = a.device
         t = _conv(a, b)                                        # < 2^36
         # m = T_lo * n' mod 2^256 straight from the raw low columns (their

@@ -63,9 +63,10 @@ def from_planes(planes):
 
 def field_binop_plain(op: str, params: FieldParams, a, b):
     """Plain version of the kernel: `op` in mul/add/sub over limb tensors
-    [..., 16], through the tensor field."""
+    [..., 16], through the tensor field's plain torch body (on a CUDA tensor
+    too, where the tensor field's own op is the kernel ``field_limbs``)."""
     f = jfr() if params.name == "Fr" else jfq()
-    return getattr(f, op)(a, b)
+    return getattr(f, op + "_plain")(a, b)
 
 
 @kernels.register("field_binop")

@@ -11,7 +11,9 @@ Kernels take *word planes*: a field element is 8 little-endian 32-bit words
 element index as the fastest axis, ``int32[..., 8, n]`` (the bit pattern of
 ``uint32``), so that neighbouring threads touch neighbouring addresses.
 :func:`to_word_planes` and :func:`from_word_planes` convert from and to the
-``int64[..., n, 16]`` limb tensors of the plain code.
+``int64[..., n, 16]`` limb tensors of the plain code. One kernel,
+``field_limbs`` (JField's add, sub and mul), takes those limb tensors
+themselves, each operand with its own element strides.
 
 Each wrapper that launches a kernel registers itself here and carries a
 ``launches`` integer; :func:`launch_counts` reads them and
@@ -37,7 +39,8 @@ __all__ = ["build", "load", "lib", "demangle", "register", "launch_counts",
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("field_binop.cu", "flush_scan.cu", "fold.cu", "ntt.cu", "bench.cu")
+SOURCES = ("field_binop.cu", "field_limbs.cu", "flush_scan.cu", "fold.cu", "ntt.cu",
+           "bench.cu")
 HEADERS = ("field.cuh",)
 LIB_NAME = "libzerog_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,6 +58,7 @@ _L = ctypes.c_long
 _I = ctypes.c_int
 _SIGNATURES = {
     "zg_field_binop": [_P, _P, _P, _L, _I, _I, _P],
+    "zg_field_limbs": [_P, _L, _L, _P, _L, _L, _P, _L, _L, _I, _I, _P],
     "zg_flush_scan_affine": [_P] * 10 + [_L, _L, _P],
     "zg_flush_scan_jac": [_P] * 10 + [_L, _L, _P],
     "zg_sum_rows": [_P, _P, _P, _I, _P],

@@ -171,7 +171,12 @@ def evaluate(e: Expr, ops: Any, memo: "dict[bytes, Any] | None" = None):
             memo[skey] = v
         return v
 
-    return go(e)
+    try:
+        return go(e)
+    finally:
+        # go's closure refers to go itself, a cycle that would keep every
+        # value in cache alive until the cyclic collector runs
+        cache.clear()
 
 
 def canonical_bytes(e: Expr) -> bytes:
